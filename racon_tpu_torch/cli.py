@@ -1,0 +1,146 @@
+"""Command-line interface (reference: src/main.cpp).
+
+racon's one-shot contract: three positional inputs (sequences,
+overlaps, target sequences), polished FASTA on stdout.  ``-c`` keeps
+racon's optional-argument behaviour (bare -c means 1,
+src/main.cpp:111-123) and offloads the POA stage to the card;
+``--device cpu`` runs the port on the CPU (the kernels' plain
+versions), and without it a machine with no card is an error.
+
+    python -m racon_tpu_torch.cli [options] <sequences> <overlaps> <targets>
+"""
+
+from __future__ import annotations
+
+import sys
+
+from racon_tpu_torch import __version__, resolve_device
+from racon_tpu_torch.core.overlap import InvalidInputError
+from racon_tpu_torch.core.polisher import PolisherType, create_polisher
+from racon_tpu_torch.io.parsers import (MalformedInputError,
+                                        UnsupportedFormatError)
+
+USAGE = """usage: racon_tpu_torch [options ...] <sequences> <overlaps> <target sequences>
+
+    <sequences>  FASTA/FASTQ (gzip allowed) reads used for correction
+    <overlaps>   PAF (gzip allowed) overlaps of reads and targets
+    <target sequences>  FASTA/FASTQ (gzip allowed) sequences to correct
+
+    options:
+        -u, --include-unpolished   output unpolished target sequences
+        -f, --fragment-correction  fragment correction instead of
+                                   contig polishing
+        -w, --window-length <int>  default 500
+        -q, --quality-threshold <float>  default 10.0
+        -e, --error-threshold <float>    default 0.3
+        -m, --match <int>          default 3
+        -x, --mismatch <int>       default -5
+        -g, --gap <int>            default -4
+        -t, --threads <int>        default 1
+        -c, --cudapoa-batches [<int>]  default 0 (bare -c = 1):
+                                   POA consensus on the card
+        -b, --cuda-banded-alignment  narrower POA band
+        --device <cuda|cpu>        default cuda
+        --version, -h/--help
+"""
+
+
+def parse_args(argv):
+    """getopt-style parse preserving racon's -c optional-arg quirk."""
+    opts = {"window_length": 500, "quality_threshold": 10.0,
+            "error_threshold": 0.3, "trim": True, "match": 3,
+            "mismatch": -5, "gap": -4, "threads": 1,
+            "type": PolisherType.kC, "drop_unpolished": True,
+            "cuda_poa_batches": 0, "cuda_banded_alignment": False,
+            "device": None}
+    value_opts = {"-w": ("window_length", int),
+                  "--window-length": ("window_length", int),
+                  "-q": ("quality_threshold", float),
+                  "--quality-threshold": ("quality_threshold", float),
+                  "-e": ("error_threshold", float),
+                  "--error-threshold": ("error_threshold", float),
+                  "-m": ("match", int), "--match": ("match", int),
+                  "-x": ("mismatch", int), "--mismatch": ("mismatch", int),
+                  "-g": ("gap", int), "--gap": ("gap", int),
+                  "-t": ("threads", int), "--threads": ("threads", int),
+                  "--device": ("device", str)}
+    positionals = []
+    i, n = 0, len(argv)
+    while i < n:
+        a = argv[i]
+        if a in value_opts:
+            key, conv = value_opts[a]
+            i += 1
+            if i >= n:
+                raise ValueError(f"missing argument for {a}")
+            opts[key] = conv(argv[i])
+        elif a in ("-u", "--include-unpolished"):
+            opts["drop_unpolished"] = False
+        elif a in ("-f", "--fragment-correction"):
+            opts["type"] = PolisherType.kF
+        elif a in ("-c", "--cudapoa-batches"):
+            opts["cuda_poa_batches"] = 1
+            if i + 1 < n and argv[i + 1] and \
+                    not argv[i + 1].startswith("-") and \
+                    argv[i + 1].isdigit():
+                i += 1
+                opts["cuda_poa_batches"] = int(argv[i])
+        elif a in ("-b", "--cuda-banded-alignment"):
+            opts["cuda_banded_alignment"] = True
+        elif a == "--version":
+            print(__version__)
+            raise SystemExit(0)
+        elif a in ("-h", "--help"):
+            print(USAGE, end="")
+            raise SystemExit(0)
+        elif a.startswith("-") and a != "-":
+            raise ValueError(f"unknown option {a}")
+        else:
+            positionals.append(a)
+        i += 1
+    return opts, positionals
+
+
+def main(argv=None, out=None):
+    """Run one polish; writes FASTA to ``out`` (default stdout) and
+    returns the polisher (its stage walls and POA counters)."""
+    argv = sys.argv[1:] if argv is None else argv
+    try:
+        opts, inputs = parse_args(argv)
+    except ValueError as exc:
+        print(f"[racon_tpu_torch::] error: {exc}!", file=sys.stderr)
+        raise SystemExit(1)
+    if len(inputs) < 3:
+        print("[racon_tpu_torch::] error: missing input file(s)!",
+              file=sys.stderr)
+        print(USAGE, end="", file=sys.stderr)
+        raise SystemExit(1)
+    device = resolve_device(opts["device"])
+    try:
+        polisher = create_polisher(
+            inputs[0], inputs[1], inputs[2], opts["type"],
+            opts["window_length"], opts["quality_threshold"],
+            opts["error_threshold"], opts["trim"], opts["match"],
+            opts["mismatch"], opts["gap"], opts["threads"],
+            cuda_poa_batches=opts["cuda_poa_batches"],
+            cuda_banded_alignment=opts["cuda_banded_alignment"],
+            device=device)
+        try:
+            polisher.initialize()
+            polished = polisher.polish(opts["drop_unpolished"])
+            polisher.total_log()
+        finally:
+            polisher.close()
+    except (InvalidInputError, UnsupportedFormatError,
+            MalformedInputError, FileNotFoundError) as exc:
+        print(f"[racon_tpu_torch::] error: {exc}", file=sys.stderr)
+        raise SystemExit(1)
+    out = sys.stdout.buffer if out is None else out
+    out.write(b"".join(b">" + seq.name.encode() + b"\n" + seq.data + b"\n"
+                       for seq in polished))
+    out.flush()
+    return polisher
+
+
+if __name__ == "__main__":
+    main()

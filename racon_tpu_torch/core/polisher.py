@@ -1,0 +1,399 @@
+"""Polisher: the pipeline orchestrator (reference: src/polisher.{hpp,cpp}).
+
+Drives parse -> overlap filtering -> breaking points -> windowing ->
+consensus -> stitching, in the stage order of the JAX package's
+``racon_tpu/core/polisher.py``: ``initialize`` (:174),
+``find_overlap_breaking_points`` (:523), ``_build_windows`` (:646),
+``generate_consensuses`` (:697) and ``polish`` (:709).  The accelerator
+seam is the reference's (src/polisher.hpp:55,74): the CUDA subclass
+(racon_tpu_torch.cuda.polisher) overrides ``generate_consensuses`` to
+run the POA kernel, with the CPU engine for whatever the kernel
+rejects.  Stage walls land in ``stage_walls``.
+"""
+
+from __future__ import annotations
+
+import concurrent.futures
+import enum
+import time
+from typing import Dict, List, Optional
+
+import numpy as np
+
+from racon_tpu_torch.core.overlap import InvalidInputError, Overlap
+from racon_tpu_torch.core.sequence import Sequence
+from racon_tpu_torch.core.window import Window, WindowType
+from racon_tpu_torch.io.parsers import (create_overlap_parser,
+                                        create_sequence_parser)
+from racon_tpu_torch.ops import cpu
+from racon_tpu_torch.utils.logger import Logger
+
+CHUNK_SIZE = 1024 * 1024 * 1024  # reference kChunkSize (polisher.cpp:26)
+
+
+class PolisherType(enum.Enum):
+    kC = 0  # contig polishing
+    kF = 1  # fragment (read) error correction
+
+
+def create_polisher(sequences_path: str, overlaps_path: str,
+                    target_path: str, type_: PolisherType,
+                    window_length: int, quality_threshold: float,
+                    error_threshold: float, trim: bool, match: int,
+                    mismatch: int, gap: int, num_threads: int,
+                    cuda_poa_batches: int = 0,
+                    cuda_banded_alignment: bool = False,
+                    device=None) -> "Polisher":
+    """Factory mirroring racon::createPolisher (src/polisher.cpp:55-159):
+    ``cuda_poa_batches > 0`` offloads the POA stage to the card
+    (``device``, default cuda), the reference's --cudapoa-batches."""
+    if not isinstance(type_, PolisherType):
+        raise InvalidInputError("invalid polisher type!")
+    if window_length == 0:
+        raise InvalidInputError("invalid window length!")
+    sparser = create_sequence_parser(sequences_path)
+    oparser = create_overlap_parser(overlaps_path)
+    tparser = create_sequence_parser(target_path)
+    args = (sparser, oparser, tparser, type_, window_length,
+            quality_threshold, error_threshold, trim, match, mismatch, gap,
+            num_threads)
+    if cuda_poa_batches > 0:
+        from racon_tpu_torch.cuda.polisher import CudaPolisher
+        return CudaPolisher(*args, cuda_poa_batches=cuda_poa_batches,
+                            cuda_banded_alignment=cuda_banded_alignment,
+                            device=device)
+    return Polisher(*args)
+
+
+class Polisher:
+    def __init__(self, sparser, oparser, tparser, type_: PolisherType,
+                 window_length: int, quality_threshold: float,
+                 error_threshold: float, trim: bool, match: int,
+                 mismatch: int, gap: int, num_threads: int):
+        self.sparser = sparser
+        self.oparser = oparser
+        self.tparser = tparser
+        self.type = type_
+        self.window_length = window_length
+        self.quality_threshold = quality_threshold
+        self.error_threshold = error_threshold
+        self.trim = trim
+        self.match, self.mismatch, self.gap = match, mismatch, gap
+        self.num_threads = max(1, num_threads)
+        self.sequences: List[Sequence] = []
+        self.windows: List[Window] = []
+        self.targets_coverages: List[int] = []
+        self.window_type = WindowType.TGS
+        self.stage_walls: Dict[str, float] = {}
+        self.dummy_quality = b"!" * window_length
+        self.engine = cpu.PoaEngine(match, mismatch, gap)
+        self.logger = Logger()
+        self._pool = concurrent.futures.ThreadPoolExecutor(
+            max_workers=self.num_threads)
+
+    def _wall(self, stage: str, t0: float) -> None:
+        self.stage_walls[stage] = self.stage_walls.get(stage, 0.0) \
+            + time.perf_counter() - t0
+
+    # ------------------------------------------------------------------
+    # initialize: reference src/polisher.cpp:191-459
+    # ------------------------------------------------------------------
+
+    def initialize(self) -> None:
+        if self.windows:
+            print("[racon_tpu_torch::Polisher::initialize] warning: "
+                  "object already initialized!")
+            return
+        self.logger.log()
+        t0 = time.perf_counter()
+        self.tparser.reset()
+        self.tparser.parse(self.sequences, -1)
+        targets_size = len(self.sequences)
+        if targets_size == 0:
+            raise InvalidInputError("empty target sequences set!")
+
+        name_to_id: Dict[str, int] = {}
+        for i in range(targets_size):
+            name_to_id[self.sequences[i].name + "t"] = i
+        has_name = [True] * targets_size
+        has_data = [True] * targets_size
+        has_reverse_data = [False] * targets_size
+        self.logger.log("[racon_tpu_torch::Polisher::initialize] loaded "
+                        "target sequences")
+        self.logger.log()
+
+        # reads, with duplicate read-as-target dedup
+        # (reference: src/polisher.cpp:228-263)
+        sequences_size = 0
+        total_sequences_length = 0
+        self.sparser.reset()
+        while True:
+            chunk_start = len(self.sequences)
+            status = self.sparser.parse(self.sequences, CHUNK_SIZE)
+            kept: List[Sequence] = []
+            n_dropped = 0
+            for i in range(chunk_start, len(self.sequences)):
+                seq = self.sequences[i]
+                total_sequences_length += len(seq.data)
+                existing = name_to_id.get(seq.name + "t")
+                if existing is not None:
+                    if len(seq.data) != \
+                            len(self.sequences[existing].data) or \
+                            len(seq.quality) != \
+                            len(self.sequences[existing].quality):
+                        raise InvalidInputError(
+                            f"duplicate sequence {seq.name} with unequal "
+                            "data")
+                    name_to_id[seq.name + "q"] = existing
+                    n_dropped += 1
+                else:
+                    new_id = i - n_dropped
+                    name_to_id[seq.name + "q"] = new_id
+                    kept.append(seq)
+                sequences_size += 1
+            del self.sequences[chunk_start:]
+            self.sequences.extend(kept)
+            if not status:
+                break
+        if sequences_size == 0:
+            raise InvalidInputError("empty sequences set!")
+
+        n_total = len(self.sequences)
+        has_name += [False] * (n_total - targets_size)
+        has_data += [False] * (n_total - targets_size)
+        has_reverse_data += [False] * (n_total - targets_size)
+        window_type = (WindowType.NGS
+                       if total_sequences_length / sequences_size <= 1000
+                       else WindowType.TGS)
+        self.window_type = window_type
+        self.logger.log("[racon_tpu_torch::Polisher::initialize] loaded "
+                        "sequences")
+        self.logger.log()
+
+        overlaps = self._load_overlaps(name_to_id, has_data,
+                                       has_reverse_data)
+        if not overlaps:
+            raise InvalidInputError("empty overlap set!")
+        self.logger.log("[racon_tpu_torch::Polisher::initialize] loaded "
+                        "overlaps")
+        self.logger.log()
+        # materialise reverse complements in the pool
+        # (reference: src/polisher.cpp:368-377)
+        list(self._pool.map(
+            lambda args: args[0].transmute(*args[1:]),
+            [(s, has_name[j], has_data[j], has_reverse_data[j])
+             for j, s in enumerate(self.sequences)]))
+        self._wall("parse", t0)
+
+        t0 = time.perf_counter()
+        self.find_overlap_breaking_points(overlaps)
+        self._wall("align", t0)
+
+        self.logger.log()
+        t0 = time.perf_counter()
+        self._build_windows(targets_size, window_type, overlaps)
+        self._wall("windows", t0)
+        self.logger.log("[racon_tpu_torch::Polisher::initialize] "
+                        "transformed data into windows")
+
+    def _load_overlaps(self, name_to_id, has_data, has_reverse_data) -> List[Overlap]:
+        """Stream overlaps, transmute, and filter (polisher.cpp:283-354)."""
+        overlaps: List[Optional[Overlap]] = []
+
+        def remove_invalid(begin: int, end: int) -> None:
+            for i in range(begin, end):
+                if overlaps[i] is None:
+                    continue
+                o = overlaps[i]
+                if o.error > self.error_threshold or o.q_id == o.t_id:
+                    overlaps[i] = None
+                    continue
+                if self.type == PolisherType.kC:
+                    # keep only the longest overlap per query
+                    for j in range(i + 1, end):
+                        if overlaps[j] is None:
+                            continue
+                        if o.length > overlaps[j].length:
+                            overlaps[j] = None
+                        else:
+                            overlaps[i] = None
+                            break
+
+        self.oparser.reset()
+        l = 0
+        while True:
+            status = self.oparser.parse(overlaps, CHUNK_SIZE)
+            c = l
+            for i in range(l, len(overlaps)):
+                overlaps[i].transmute(self.sequences, name_to_id)
+                if not overlaps[i].is_valid:
+                    overlaps[i] = None
+                    continue
+                while overlaps[c] is None:
+                    c += 1
+                if overlaps[c].q_id != overlaps[i].q_id:
+                    remove_invalid(c, i)
+                    c = i
+            if not status:
+                remove_invalid(c, len(overlaps))
+                c = len(overlaps)
+            for i in range(l, c):
+                if overlaps[i] is None:
+                    continue
+                if overlaps[i].strand:
+                    has_reverse_data[overlaps[i].q_id] = True
+                else:
+                    has_data[overlaps[i].q_id] = True
+            # compact nulls from l onward (reference shrinkToFit,
+            # src/polisher.cpp:348-349)
+            n_removed_before_c = sum(1 for o in overlaps[l:c] if o is None)
+            overlaps[l:] = [o for o in overlaps[l:] if o is not None]
+            l = c - n_removed_before_c
+            if not status:
+                break
+        return overlaps  # type: ignore[return-value]
+
+    # ------------------------------------------------------------------
+    # breaking points (reference: src/polisher.cpp:461-483)
+    # ------------------------------------------------------------------
+
+    def find_overlap_breaking_points(self, overlaps: List[Overlap]) -> None:
+        def work(o: Overlap) -> None:
+            o.find_breaking_points(self.sequences, self.window_length,
+                                   aligner=cpu.align)
+
+        self._run_pooled([(work, (o,)) for o in overlaps],
+                         "[racon_tpu_torch::Polisher::initialize] "
+                         "aligning overlaps",
+                         "[racon_tpu_torch::Polisher::initialize] "
+                         "aligned overlaps")
+
+    def _run_pooled(self, tasks, bar_message: str,
+                    done_message: str) -> list:
+        """Fan tasks over the pool with the reference's 20-bin bar."""
+        futures = [self._pool.submit(fn, *args) for fn, args in tasks]
+        results = []
+        step = len(futures) // 20
+        for i, f in enumerate(futures):
+            results.append(f.result())
+            if step != 0 and (i + 1) % step == 0 and (i + 1) // step < 20:
+                self.logger.bar(bar_message)
+        if step != 0:
+            self.logger.bar(bar_message)
+        else:
+            self.logger.log(done_message)
+        return results
+
+    # ------------------------------------------------------------------
+    # windowing (reference: src/polisher.cpp:383-456)
+    # ------------------------------------------------------------------
+
+    def _build_windows(self, targets_size: int, window_type: WindowType,
+                       overlaps: List[Overlap]) -> None:
+        w = self.window_length
+        first_window_id = [0] * (targets_size + 1)
+        for i in range(targets_size):
+            data = self.sequences[i].data
+            quality = self.sequences[i].quality
+            k = 0
+            for j in range(0, len(data), w):
+                length = min(j + w, len(data)) - j
+                q = (self.dummy_quality[:length] if not quality
+                     else quality[j:j + length])
+                self.windows.append(Window(i, k, window_type,
+                                           data[j:j + length], q))
+                k += 1
+            first_window_id[i + 1] = first_window_id[i] + k
+        self.targets_coverages = [0] * targets_size
+
+        for o in overlaps:
+            self.targets_coverages[o.t_id] += 1
+            points = o.breaking_points
+            o.breaking_points = None
+            if points is None or len(points) == 0:
+                continue
+            sequence = self.sequences[o.q_id]
+            # reverse_quality exists iff transmute materialised it
+            has_quality = bool(sequence.quality) or \
+                bool(sequence._reverse_quality)
+            quality_src = (sequence.reverse_quality if o.strand
+                           else sequence.quality)
+            data_src = (sequence.reverse_complement if o.strand
+                        else sequence.data)
+            pts = np.asarray(points, dtype=np.int64)
+            t_first, q_first = pts[0::2, 0], pts[0::2, 1]
+            t_last, q_last = pts[1::2, 0], pts[1::2, 1]
+            keep = (q_last - q_first) >= 0.02 * w
+            if has_quality and quality_src:
+                idx = np.flatnonzero(keep)
+                if idx.size:
+                    # mean fragment quality from prefix sums (exact:
+                    # sums stay far below 2^53)
+                    prefix = np.concatenate(([0], np.cumsum(
+                        np.frombuffer(quality_src, np.uint8)
+                        .astype(np.int64))))
+                    total = prefix[q_last[idx]] - prefix[q_first[idx]]
+                    count = q_last[idx] - q_first[idx]
+                    keep[idx] = ~((total / count - 33)
+                                  < self.quality_threshold)
+            for j in np.flatnonzero(keep).tolist():
+                tf, tl = int(t_first[j]), int(t_last[j])
+                qf, ql = int(q_first[j]), int(q_last[j])
+                window_start = (tf // w) * w
+                self.windows[first_window_id[o.t_id] + tf // w].add_layer(
+                    data_src[qf:ql],
+                    quality_src[qf:ql] if quality_src else None,
+                    tf - window_start, tl - window_start - 1)
+
+    # ------------------------------------------------------------------
+    # consensus + polish (reference: src/polisher.cpp:485-547)
+    # ------------------------------------------------------------------
+
+    def generate_consensuses(self) -> List[bool]:
+        """Consensus of every window on the CPU engine; returns the
+        polished flags."""
+        return self._run_pooled(
+            [(lambda w=w: w.generate_consensus(self.engine, self.trim), ())
+             for w in self.windows],
+            "[racon_tpu_torch::Polisher::polish] generating consensus",
+            "[racon_tpu_torch::Polisher::polish] generated consensus")
+
+    def polish(self, drop_unpolished_sequences: bool) -> List[Sequence]:
+        self.logger.log()
+        t0 = time.perf_counter()
+        polished_flags = self.generate_consensuses()
+        self._wall("poa", t0)
+
+        t0 = time.perf_counter()
+        dst: List[Sequence] = []
+        start = 0
+        for i in range(len(self.windows)):
+            if i != len(self.windows) - 1 and \
+                    self.windows[i + 1].rank != 0:
+                continue
+            lo, hi = start, i + 1
+            start = i + 1
+            window = self.windows[hi - 1]
+            n_polished = sum(1 for k in range(lo, hi) if polished_flags[k])
+            polished_ratio = n_polished / (window.rank + 1)
+            if drop_unpolished_sequences and not polished_ratio > 0:
+                continue
+            data = b"".join(self.windows[k].consensus for k in range(lo, hi))
+            tags = "r" if self.type == PolisherType.kF else ""
+            tags += f" LN:i:{len(data)}"
+            tags += f" RC:i:{self.targets_coverages[window.id]}"
+            tags += f" XC:f:{polished_ratio:.6f}"
+            dst.append(Sequence(self.sequences[window.id].name + tags, data))
+        self._wall("stitch", t0)
+        self.windows = []
+        self.sequences = []
+        return dst
+
+    def total_log(self) -> None:
+        self.logger.total("[racon_tpu_torch::Polisher::] total =")
+
+    def close(self) -> None:
+        """Release the worker pool and the parsers' file handles."""
+        self._pool.shutdown(wait=True)
+        for parser in (self.sparser, self.oparser, self.tparser):
+            parser.close()

@@ -1,0 +1,107 @@
+"""Build and bind the port's CUDA kernels.
+
+Each ``csrc/*.cu`` file is compiled by ``nvcc`` for ``sm_90a`` into its
+own shared library with a plain C interface under
+``racon_tpu_torch/build/cuda`` (ignored by git) the first time it is
+needed, and loaded with ctypes.  A library newer than its source is
+reused.  Several sources build in parallel (one ``nvcc`` each).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import shutil
+import subprocess
+import threading
+import time
+from typing import Dict, List
+
+_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC_DIR = os.path.join(_PKG_DIR, "cuda", "csrc")
+BUILD_DIR = os.path.join(_PKG_DIR, "build", "cuda")
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+
+#: kernel sources, by library name
+SOURCES = {"poa_full": "poa_full.cu"}
+
+_libs: Dict[str, ctypes.CDLL] = {}
+_lock = threading.Lock()
+#: per-library build record: seconds and the ptxas resource report
+BUILD_LOG: Dict[str, dict] = {}
+
+
+def _nvcc() -> str:
+    for cand in (shutil.which("nvcc"),
+                 os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                              "bin", "nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("[racon_tpu_torch::cuda] nvcc not found: the CUDA "
+                       "kernels are built on a machine with the CUDA "
+                       "toolkit")
+
+
+def lib_path(name: str) -> str:
+    return os.path.join(BUILD_DIR, f"lib{name}.so")
+
+
+def _start(name: str):
+    """Start one nvcc; returns (Popen, t0) or None when up to date."""
+    src = os.path.join(CSRC_DIR, SOURCES[name])
+    out = lib_path(name)
+    if os.path.exists(out) and \
+            os.path.getmtime(out) >= os.path.getmtime(src):
+        return None
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    cmd = [_nvcc(), *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
+           "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", out + ".tmp", src]
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True), \
+        time.perf_counter()
+
+
+def build_all(names: List[str] = None) -> Dict[str, dict]:
+    """Build the named kernels (default: all), every nvcc started
+    before any is waited on.  Raises on a failed build."""
+    names = list(SOURCES) if names is None else names
+    procs = {n: _start(n) for n in names}
+    errors = []
+    for n, started in procs.items():
+        if started is None:
+            BUILD_LOG.setdefault(n, {"seconds": 0.0, "ptxas": "cached"})
+            continue
+        proc, t0 = started
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            errors.append(f"{n}:\n{log}")
+            continue
+        os.replace(lib_path(n) + ".tmp", lib_path(n))
+        BUILD_LOG[n] = {"seconds": time.perf_counter() - t0,
+                        "ptxas": log.strip()}
+    if errors:
+        raise RuntimeError("[racon_tpu_torch::cuda] nvcc failed:\n"
+                           + "\n".join(errors))
+    return BUILD_LOG
+
+
+def load(name: str = "poa_full") -> ctypes.CDLL:
+    """The bound library of one kernel, built at first use."""
+    with _lock:
+        if name in _libs:
+            return _libs[name]
+        build_all([name])
+        lib = ctypes.CDLL(lib_path(name))
+        if name == "poa_full":
+            vp, i = ctypes.c_void_p, ctypes.c_int
+            lib.poa_full_launch.restype = i
+            lib.poa_full_launch.argtypes = [vp] * 8 + [ctypes.c_longlong] \
+                + [i] * 13 + [vp]
+            lib.poa_full_error_string.restype = ctypes.c_char_p
+            lib.poa_full_error_string.argtypes = [i]
+        _libs[name] = lib
+        return lib
+
+
+def error_string(err: int) -> str:
+    return load("poa_full").poa_full_error_string(err).decode()

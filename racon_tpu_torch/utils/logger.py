@@ -1,0 +1,60 @@
+"""Stage timing and progress logging (reference: src/logger.{hpp,cpp}).
+
+Same observable behaviour as racon's Logger: ``log()`` (re)starts a stage
+timer, ``log(msg)`` prints the elapsed stage seconds to stderr, ``bar``
+renders a 20-bin progress bar, and ``total`` prints the cumulative wall
+clock.  One re-entrant lock serializes the three, so pool threads can
+log without corrupting the bar.
+"""
+
+from __future__ import annotations
+
+import sys
+import threading
+import time
+
+
+class Logger:
+    def __init__(self):
+        self._time = 0.0
+        self._start = time.monotonic()
+        self._bar_state = 0
+        self._lock = threading.RLock()
+
+    def log(self, message: str | None = None) -> None:
+        with self._lock:
+            now = time.monotonic()
+            if message is None:
+                self._start = now
+                return
+            elapsed = now - self._start
+            self._time += elapsed
+            print(f"{message} {elapsed:.6f} s", file=sys.stderr)
+            self._start = now
+
+    def bar(self, message: str) -> None:
+        with self._lock:
+            self._bar_state += 1
+            percent = self._bar_state * 5
+            bar = "=" * self._bar_state + ">" + " " * (20 - self._bar_state)
+            end = "\n" if self._bar_state == 20 else ""
+            # \r redraw only on a terminal; piped stderr gets one final
+            # line per bar
+            try:
+                tty = sys.stderr.isatty()
+            except (AttributeError, ValueError):
+                tty = False
+            if tty or self._bar_state == 20:
+                lead = "\r" if tty else ""
+                print(f"{lead}{message} [{bar}] {percent}%", end=end,
+                      file=sys.stderr, flush=True)
+            if self._bar_state == 20:
+                now = time.monotonic()
+                self._time += now - self._start
+                self._start = now
+                self._bar_state = 0
+
+    def total(self, message: str) -> None:
+        with self._lock:
+            self._time += time.monotonic() - self._start
+            print(f"{message} {self._time:.6f} s", file=sys.stderr)
