@@ -6,20 +6,32 @@
 Needs one CUDA card.  Phases, one JSON line each:
 
 1. env          card name and power limit, torch and CUDA versions;
-2. build        nvcc builds every kernel from the checkout's sources;
+2. build        nvcc builds every kernel from the checkout's sources,
+                all started together, with ptxas registers and spills;
 3. dataset      simulates an E. coli-sized ONT set (4,641,652 bp,
                 30x, 8 kb reads, seed 7) and cuts a 120 kb region of
-                it whose windows feed the checks below;
+                it whose windows and overlaps feed the checks below;
 4. kernel_check 32 real windows at stock caps (V 2048, LP 1024,
                 WB 256) plus tiny windows (and a forced reject): the
-                CUDA kernel and its plain PyTorch version on the card
+                POA kernel and its plain PyTorch version on the card
                 must agree exactly on cons[:len] and mout[:, :5];
-5. polish       the port's CLI (-m 5 -x -4 -g -8 -c 1) on the whole
-                set; launches > 0, rejects <= 10% of eligible windows,
-                polished distance to truth <= draft distance / 10;
-6. native_compare  200 region windows on the kernel and on the native
-                CPU engine: summed edit distance between the two;
-7. kernels      every ported kernel with its launches in phase 5.
+5. align_check  32 real overlaps of the region at their real lengths:
+                the WFA kernel (emax 2048) and the banded kernel (wb
+                2048, proportional knots; wb 4096 on measured knots for
+                8 of them) against their plain versions, plus tiny
+                edge cases; WFA meta and tape[:n], band distance and,
+                below BIG, move count and moves must agree exactly, and
+                every certified WFA distance must be the native edit
+                distance;
+6. polish       the port's CLI (-m 5 -x -4 -g -8 -c 1
+                --cudaaligner-batches 1) on the whole set: all three
+                kernels launched, CPU fall-through <= 10% of the
+                device-eligible overlaps, POA rejects <= 10% of
+                eligible windows, polished distance to truth <= draft
+                distance / 10;
+7. native_compare  200 region windows on the POA kernel and on the
+                native CPU engine: summed edit distance between the two;
+8. kernels      every ported kernel with its launches in phase 6.
 
 Then the card's line as nvidia-smi prints it and the result line.  Any
 failure raises and the script exits non-zero without a result line.
@@ -50,6 +62,14 @@ ALU_OPS_PER_S = 67e12
 # substitution, the diag/vert candidates, the max-plus scan, the
 # direction code and the packed store), counted from csrc/poa_full.cu
 OPS_PER_CELL = 32
+# int32 operations per wavefront cell (one diagonal at one step: three
+# neighbour loads, the three candidates with their boundary tests, the
+# max, one 8-base slide compare, two stores), from csrc/align_wfa.cu
+OPS_PER_WFA_CELL = 24
+# int32 operations per band cell (target load and compare, the diagonal
+# and vertical candidates, the masks, the thread-local and block prefix
+# minimum, the direction code and its packing), from csrc/align_band.cu
+OPS_PER_BAND_CELL = 20
 
 
 def emit(phase: str, **kw) -> None:
@@ -199,6 +219,231 @@ def compare(kernel_out, plain_out) -> tuple:
     return bad, err
 
 
+def region_pairs(region, n: int, max_dim: int) -> list:
+    """The first ``n`` overlaps of the region (PAF order) as (query span,
+    target span) byte pairs at their real lengths, strand applied."""
+    reads_path, paf_path, draft_path = region
+    draft = read_fasta(draft_path)
+    reads = {}
+    with open(reads_path, "rb") as fh:
+        while True:
+            rec = [fh.readline() for _ in range(4)]
+            if not rec[0]:
+                break
+            reads[rec[0][1:].strip()] = rec[1].strip()
+    comp = bytes.maketrans(b"ACGT", b"TGCA")
+    pairs = []
+    with open(paf_path, "rb") as fh:
+        for line in fh:
+            f = line.split(b"\t")
+            q = reads[f[0]][int(f[2]):int(f[3])]
+            if f[4] == b"-":
+                q = q.translate(comp)[::-1]
+            t = draft[int(f[7]):int(f[8])]
+            if 0 < min(len(q), len(t)) and max(len(q), len(t)) <= max_dim:
+                pairs.append((q, t))
+            if len(pairs) == n:
+                break
+    return pairs
+
+
+def tiny_pairs(rng: random.Random):
+    """Edge cases at lq 512: 5% and 15% divergence, a 60-bp deletion, N
+    bases, a distance past emax 128, an empty query, |tl - ql| > 128,
+    and (last) a pair whose zero knots leave its end outside a 256
+    band."""
+    def seq(n):
+        return bytes(rng.choice(b"ACGT") for _ in range(n))
+
+    def mutate(s, rate):
+        out = bytearray()
+        for ch in s:
+            r = rng.random()
+            if r < rate / 3:
+                continue
+            out.append(rng.choice(b"ACGT") if r < 2 * rate / 3 else ch)
+            if r > 1 - rate / 3:
+                out.append(rng.choice(b"ACGT"))
+        return bytes(out)
+
+    qs, ts = [], []
+    for n, rate in ((300, 0.05), (420, 0.15)):
+        q = seq(n)
+        qs.append(q)
+        ts.append(mutate(q, rate))
+    q = seq(400)
+    qs.append(q)
+    ts.append(mutate(q[:150] + q[210:], 0.03))
+    q = seq(200)
+    qs.append(q[:50] + b"NNNN" + q[50:])
+    ts.append(q[:50] + b"NNNN" + mutate(q[50:], 0.05))
+    qs += [seq(300), b"", b"ACGT" * 20, seq(100)]
+    ts += [seq(300), b"ACGT", b"ACGT" * 80, seq(480)]
+    return qs, ts
+
+
+def align_inputs(qs, ts, lq, dev, knots=None):
+    """Encoded pairs on the card: q, t, ql, tl (and ctr when ``knots``)."""
+    import numpy as np
+    import torch
+    from racon_tpu_torch.cuda import aligner as al
+
+    def lens(ss):
+        return torch.tensor([len(x) for x in ss], dtype=torch.int32,
+                            device=dev)
+    out = [torch.from_numpy(al.encode_batch(qs, lq, al.QPAD)).to(dev),
+           torch.from_numpy(al.encode_batch(ts, lq, al.TPAD)).to(dev),
+           lens(qs), lens(ts)]
+    if knots is not None:
+        out.append(torch.from_numpy(np.stack(knots).astype(np.int32))
+                   .to(dev))
+    return out
+
+
+def compare_wfa(kernel_out, plain_out) -> tuple:
+    """(mismatching pairs, max |difference|) over meta[:, :2] and
+    tape[:n]."""
+    kt, km = (t.cpu().numpy().astype("int64") for t in kernel_out)
+    pt, pm = (t.cpu().numpy().astype("int64") for t in plain_out)
+    bad, err = 0, 0
+    for k in range(pm.shape[0]):
+        n = int(pm[k, 1])
+        d = max(int(abs(km[k, :2] - pm[k, :2]).max()),
+                int(abs(kt[k].reshape(-1)[:n]
+                        - pt[k].reshape(-1)[:n]).max(initial=0)))
+        bad += d != 0
+        err = max(err, d)
+    return bad, err
+
+
+def compare_band(kernel_out, plain_out) -> tuple:
+    """(mismatching pairs, max |difference|) over the distance and,
+    below BIG, the move count and moves[:len]."""
+    from racon_tpu_torch.cuda import align_band as ab
+
+    km, pm = (t.cpu().numpy().astype("int64") for t in
+              (kernel_out[1], plain_out[1]))
+    kmv, pmv = (ab.unpack_moves(t.cpu().numpy()).astype("int64") for t in
+                (kernel_out[0], plain_out[0]))
+    bad, err = 0, 0
+    for k in range(pm.shape[0]):
+        d = abs(int(km[k, 0]) - int(pm[k, 0]))
+        if pm[k, 0] < ab.BIG:
+            n = int(pm[k, 1])
+            d = max(d, abs(int(km[k, 1]) - n),
+                    int(abs(kmv[k, :n] - pmv[k, :n]).max(initial=0)))
+        bad += d != 0
+        err = max(err, d)
+    return bad, err
+
+
+def timed_pair(kernel, plain, reps: int = 5) -> tuple:
+    """(kernel outputs, plain outputs, kernel ms as the median of
+    ``reps`` CUDA-event timings after one warm call, plain ms of one
+    call on the host clock with a synchronize)."""
+    import torch
+    out = kernel()
+    torch.cuda.synchronize()
+    ms = statistics.median(cuda_ms(kernel, reps))
+    t0 = time.perf_counter()
+    ref = plain()
+    torch.cuda.synchronize()
+    return out, ref, ms, 1e3 * (time.perf_counter() - t0)
+
+
+def bound(in_bytes: int, out_bytes: int, ops: int) -> tuple:
+    """(bound ms, what binds): bytes over the HBM rate vs int32
+    operations over the ALU rate."""
+    bytes_ms = 1e3 * (in_bytes + out_bytes) / HBM_BYTES_PER_S
+    ops_ms = 1e3 * ops / ALU_OPS_PER_S
+    return max(bytes_ms, ops_ms), \
+        "bytes" if bytes_ms >= ops_ms else "operations"
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def align_check(region, dev, cpu) -> dict:
+    """Phase 5: the align kernels against their plain versions."""
+    from racon_tpu_torch.cuda import align_band as ab
+    from racon_tpu_torch.cuda import align_wfa as aw
+
+    pairs = region_pairs(region, 32, aw.MAX_DIM)
+    if len(pairs) < 32:
+        raise RuntimeError(f"only {len(pairs)} region overlaps fit")
+    qs, ts = [p[0] for p in pairs], [p[1] for p in pairs]
+    lq = (max(max(map(len, qs)), max(map(len, ts))) + 127) // 128 * 128
+    res = {"pairs": len(pairs), "lq": lq}
+    # WFA, emax 2048
+    emax = 2048
+    args = align_inputs(qs, ts, lq, dev)
+    wk, wp, ms, plain_ms = timed_pair(
+        lambda: aw.wfa_align(*args, emax=emax),
+        lambda: aw.wfa_align_reference(*args, emax=emax))
+    bad, err = compare_wfa(wk, wp)
+    dists = wp[1][:, 0].cpu().tolist()
+    native_bad = sum(d != cpu.edit_distance(q, t)
+                     for q, t, d in zip(qs, ts, dists) if d <= emax)
+    cells = sum((d + 1) ** 2 for d in dists if d <= emax)
+    bms, by = bound(nbytes(*args), nbytes(*wk), cells * OPS_PER_WFA_CELL)
+    res["wfa"] = {"emax": emax, "mismatches": bad, "max_abs_err": err,
+                  "certified": sum(d <= emax for d in dists),
+                  "native_mismatches": native_bad, "wavefront_cells": cells,
+                  "kernel_ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
+                  "bound_by": by, "library_ms": None}
+    # banded, wb 2048 on proportional knots
+    wb = 2048
+    knots = [ab.proportional_knots(len(q), len(t), lq)
+             for q, t in zip(qs, ts)]
+    bargs = align_inputs(qs, ts, lq, dev, knots)
+    bk, bp, bms_k, bplain = timed_pair(
+        lambda: ab.band_align(*bargs, wb=wb),
+        lambda: ab.band_align_reference(*bargs, wb=wb))
+    bbad, berr = compare_band(bk, bp)
+    bcells = sum(map(len, qs)) * wb
+    bbound, bby = bound(nbytes(*bargs), nbytes(*bk),
+                        bcells * OPS_PER_BAND_CELL)
+    res["band"] = {"wb": wb, "mismatches": bbad, "max_abs_err": berr,
+                   "in_band": int((bp[1][:, 0] < ab.BIG).sum()),
+                   "cells": bcells, "kernel_ms": bms_k, "plain_ms": bplain,
+                   "bound_ms": bbound, "bound_by": bby, "library_ms": None}
+    # banded, wb 4096 on measured knots for 8 pairs
+    sub = slice(0, 8)
+    mk = [ab.estimate_center_knots(q, t, lq)
+          for q, t in zip(qs[sub], ts[sub])]
+    margs = align_inputs(qs[sub], ts[sub], lq, dev, mk)
+    mbad, merr = compare_band(ab.band_align(*margs, wb=4096),
+                              ab.band_align_reference(*margs, wb=4096))
+    res["band_measured"] = {"wb": 4096, "pairs": 8, "mismatches": mbad,
+                            "max_abs_err": merr}
+    # tiny edge cases: WFA at emax 128, band at wb 256 (zero knots for
+    # the last pair put its end outside the band)
+    tq, tt = tiny_pairs(random.Random(5))
+    targs = align_inputs(tq, tt, 512, dev)
+    tw = aw.wfa_align(*targs, emax=128)
+    tbad, terr = compare_wfa(tw, aw.wfa_align_reference(*targs, emax=128))
+    tdist = tw[1][:, 0].cpu().tolist()
+    native_bad += sum(d != cpu.edit_distance(q, t)
+                      for q, t, d in zip(tq, tt, tdist) if d <= 128)
+    tkn = [ab.proportional_knots(len(q), len(t), 512)
+           for q, t in zip(tq, tt)]
+    tkn[-1] = tkn[-1] * 0
+    tbargs = align_inputs(tq, tt, 512, dev, tkn)
+    tb = ab.band_align(*tbargs, wb=256)
+    tbbad, tberr = compare_band(tb, ab.band_align_reference(*tbargs,
+                                                             wb=256))
+    res["tiny"] = {"pairs": len(tq), "wfa_mismatches": tbad,
+                   "wfa_max_abs_err": terr,
+                   "wfa_rejected": sum(d > 128 for d in tdist),
+                   "band_mismatches": tbbad, "band_max_abs_err": tberr,
+                   "band_out_of_band": int((tb[1][:, 0] >= ab.BIG).sum())}
+    res["native_mismatches"] = native_bad
+    res["mismatches"] = bad + bbad + mbad + tbad + tbbad
+    res["max_abs_err"] = max(err, berr, merr, terr, tberr)
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--genome-len", type=int, default=4_641_652)
@@ -217,6 +462,8 @@ def main(argv=None) -> int:
     from racon_tpu_torch.core.polisher import (PolisherType,
                                                create_polisher)
     from racon_tpu_torch.core.window import WindowType
+    from racon_tpu_torch.cuda import align_band as ab
+    from racon_tpu_torch.cuda import align_wfa as aw
     from racon_tpu_torch.cuda import build, poa_full as pf
     from racon_tpu_torch.cuda.poa import CudaPoaBatchEngine
     from racon_tpu_torch.ops import cpu
@@ -308,22 +555,38 @@ def main(argv=None) -> int:
         raise RuntimeError(f"kernel disagrees with its plain version on "
                            f"{mismatches} window(s)")
 
+    # ---- align_check ----------------------------------------------------
+    acheck = align_check(region, dev, cpu)
+    emit("align_check", **acheck)
+    if acheck["mismatches"]:
+        raise RuntimeError(f"an align kernel disagrees with its plain "
+                           f"version on {acheck['mismatches']} pair(s)")
+    if acheck["native_mismatches"]:
+        raise RuntimeError(f"{acheck['native_mismatches']} certified WFA "
+                           "distance(s) differ from the native engine")
+    if acheck["tiny"]["band_out_of_band"] < 1 or \
+            acheck["tiny"]["wfa_rejected"] < 3:
+        raise RuntimeError("a forced align reject was not rejected")
+
     # ---- polish (the main path, counted) --------------------------------
     argv_polish = ["-t", str(args.threads), "-m", "5", "-x", "-4", "-g",
-                   "-8", "-c", "1", reads, paf, draft]
+                   "-8", "-c", "1", "--cudaaligner-batches", "1", reads,
+                   paf, draft]
     out_path = os.path.join(work, "polished.fasta")
-    pf.LAUNCHES = 0
+    pf.LAUNCHES = aw.LAUNCHES = ab.LAUNCHES = 0
     t0 = time.perf_counter()
     with open(out_path, "wb") as out:
         polisher = cli.main(argv_polish, out=out)
     wall = time.perf_counter() - t0
-    launches = pf.LAUNCHES
+    launches = {"poa_full": pf.LAUNCHES, "align_wfa": aw.LAUNCHES,
+                "align_band": ab.LAUNCHES}
     eng = polisher.poa_engine
     truth = read_fasta(os.path.join(data, "genome.fasta"))
     d_draft = chunked_distance(read_fasta(draft), truth, cpu)
     d_pol = chunked_distance(read_fasta(out_path), truth, cpu)
     rejects = sum(polisher.poa_reject_counts.values())
     eligible = polisher.poa_eligible_windows
+    fallthrough = polisher.align_cpu_fallthrough
     emit("polish", argv=argv_polish[:-3], wall_s=round(wall, 3),
          stage_walls_s={k: round(v, 3)
                         for k, v in polisher.stage_walls.items()},
@@ -332,9 +595,22 @@ def main(argv=None) -> int:
          rejected=polisher.poa_reject_counts,
          skipped_layers=eng.n_skipped_layers,
          kernel_ms=round(eng.kernel_ms, 3), dp_cells=eng.cells,
+         align_eligible=polisher.align_eligible,
+         align_probed=polisher.align_probed,
+         align_over_length=polisher.align_over_length,
+         align_cpu_fallthrough=fallthrough,
+         align_rungs=polisher.align_rungs,
+         align_dispatches=polisher.align_dispatches,
+         align_kernel_ms={k: round(v, 3) for k, v in
+                          polisher.align_kernel_ms.items()},
          draft_distance=d_draft, polished_distance=d_pol)
-    if launches <= 0:
-        raise RuntimeError("the main path launched no POA kernel")
+    for name, n in launches.items():
+        if n <= 0:
+            raise RuntimeError(f"the main path launched no {name} kernel")
+    if fallthrough > 0.10 * max(1, polisher.align_eligible):
+        raise RuntimeError(f"{fallthrough} of {polisher.align_eligible} "
+                           "device-eligible overlaps fell through to the "
+                           "CPU")
     if rejects > 0.10 * max(1, eligible):
         raise RuntimeError(f"{rejects} of {eligible} windows rejected")
     if d_pol > d_draft / 10:
@@ -357,17 +633,37 @@ def main(argv=None) -> int:
 
     # ---- kernels ---------------------------------------------------------
     emit("kernels", run_s=round(time.perf_counter() - t_run, 3),
-         status={"poa_full": "ok"})
+         status={name: "ok" for name in launches})
     if args.work is None:
         shutil.rmtree(work)
+    wfa, band = acheck["wfa"], acheck["band"]
     print(card)
     print(json.dumps({"kernels": [{
         "name": "poa_full", "route": "cuda",
         "source": "racon_tpu_torch/cuda/csrc/poa_full.cu",
         "replaces": "racon_tpu/tpu/poa_pallas.py:308",
-        "launches": launches, "max_abs_err": max_err,
+        "launches": launches["poa_full"], "max_abs_err": max_err,
         "ms": ms, "plain_ms": plain_ms, "bound_ms": check["bound_ms"],
-        "bound_by": check["bound_by"], "library_ms": None}]}))
+        "bound_by": check["bound_by"], "library_ms": None}, {
+        "name": "align_wfa", "route": "cuda",
+        "source": "racon_tpu_torch/cuda/csrc/align_wfa.cu",
+        "replaces": "racon_tpu/tpu/align_pallas.py:858",
+        "launches": launches["align_wfa"],
+        "max_abs_err": max(wfa["max_abs_err"],
+                           acheck["tiny"]["wfa_max_abs_err"]),
+        "ms": wfa["kernel_ms"], "plain_ms": wfa["plain_ms"],
+        "bound_ms": wfa["bound_ms"], "bound_by": wfa["bound_by"],
+        "library_ms": None}, {
+        "name": "align_band", "route": "cuda",
+        "source": "racon_tpu_torch/cuda/csrc/align_band.cu",
+        "replaces": "racon_tpu/tpu/align_pallas.py:214",
+        "launches": launches["align_band"],
+        "max_abs_err": max(band["max_abs_err"],
+                           acheck["band_measured"]["max_abs_err"],
+                           acheck["tiny"]["band_max_abs_err"]),
+        "ms": band["kernel_ms"], "plain_ms": band["plain_ms"],
+        "bound_ms": band["bound_ms"], "bound_by": band["bound_by"],
+        "library_ms": None}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

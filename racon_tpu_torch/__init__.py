@@ -2,10 +2,11 @@
 
 The port of the JAX package ``racon_tpu`` to an NVIDIA H100: the same
 host pipeline (parse, overlap filter, breaking-point alignment,
-windowing, per-window POA consensus, stitching), with the per-window
-POA consensus computed by a CUDA C++ kernel written for Hopper
-(``racon_tpu_torch/cuda/csrc/poa_full.cu``).  Overlap alignment and the
-windows the kernel rejects run on the native CPU engines.
+windowing, per-window POA consensus, stitching), with the overlap
+alignment and the per-window POA consensus computed by CUDA C++ kernels
+written for Hopper (``racon_tpu_torch/cuda/csrc/``).  What the kernels
+leave (over-length or uncertified pairs, rejected windows) runs on the
+native CPU engines.
 
 Entry points run on the card unless the caller passes
 ``device="cpu"`` (CLI: ``--device cpu``); a card that is asked for and

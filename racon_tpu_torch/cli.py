@@ -4,8 +4,9 @@ racon's one-shot contract: three positional inputs (sequences,
 overlaps, target sequences), polished FASTA on stdout.  ``-c`` keeps
 racon's optional-argument behaviour (bare -c means 1,
 src/main.cpp:111-123) and offloads the POA stage to the card;
-``--device cpu`` runs the port on the CPU (the kernels' plain
-versions), and without it a machine with no card is an error.
+``--cudaaligner-batches`` offloads the overlap alignment; ``--device
+cpu`` runs the port on the CPU (the kernels' plain versions), and
+without it a machine with no card is an error.
 
     python -m racon_tpu_torch.cli [options] <sequences> <overlaps> <targets>
 """
@@ -40,6 +41,9 @@ USAGE = """usage: racon_tpu_torch [options ...] <sequences> <overlaps> <target s
         -c, --cudapoa-batches [<int>]  default 0 (bare -c = 1):
                                    POA consensus on the card
         -b, --cuda-banded-alignment  narrower POA band
+        --cudaaligner-batches <int>  default 0: overlap alignment on
+                                   the card (pairs over 16384 bases
+                                   stay on the CPU)
         --device <cuda|cpu>        default cuda
         --version, -h/--help
 """
@@ -52,7 +56,7 @@ def parse_args(argv):
             "mismatch": -5, "gap": -4, "threads": 1,
             "type": PolisherType.kC, "drop_unpolished": True,
             "cuda_poa_batches": 0, "cuda_banded_alignment": False,
-            "device": None}
+            "cuda_aligner_batches": 0, "device": None}
     value_opts = {"-w": ("window_length", int),
                   "--window-length": ("window_length", int),
                   "-q": ("quality_threshold", float),
@@ -63,6 +67,7 @@ def parse_args(argv):
                   "-x": ("mismatch", int), "--mismatch": ("mismatch", int),
                   "-g": ("gap", int), "--gap": ("gap", int),
                   "-t": ("threads", int), "--threads": ("threads", int),
+                  "--cudaaligner-batches": ("cuda_aligner_batches", int),
                   "--device": ("device", str)}
     positionals = []
     i, n = 0, len(argv)
@@ -103,7 +108,7 @@ def parse_args(argv):
 
 def main(argv=None, out=None):
     """Run one polish; writes FASTA to ``out`` (default stdout) and
-    returns the polisher (its stage walls and POA counters)."""
+    returns the polisher (its stage walls and kernel counters)."""
     argv = sys.argv[1:] if argv is None else argv
     try:
         opts, inputs = parse_args(argv)
@@ -124,6 +129,7 @@ def main(argv=None, out=None):
             opts["mismatch"], opts["gap"], opts["threads"],
             cuda_poa_batches=opts["cuda_poa_batches"],
             cuda_banded_alignment=opts["cuda_banded_alignment"],
+            cuda_aligner_batches=opts["cuda_aligner_batches"],
             device=device)
         try:
             polisher.initialize()

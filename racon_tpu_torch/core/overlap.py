@@ -6,7 +6,9 @@ format: name resolution against the loaded sequence set
 the alignment CIGAR (``find_breaking_points_from_cigar``, reference:
 src/overlap.cpp:226-292), vectorised with numpy.  PAF carries no
 CIGAR, so one is produced by a global alignment of the query
-span vs the target span on the native CPU aligner.
+span vs the target span: on the card's align kernels, which hand over
+``cigar_runs`` (run lengths and op codes) directly, or on the native
+CPU aligner.
 """
 
 from __future__ import annotations
@@ -29,8 +31,8 @@ class InvalidInputError(RuntimeError):
 class Overlap:
     __slots__ = ("q_name", "q_id", "q_begin", "q_end", "q_length",
                  "t_name", "t_id", "t_begin", "t_end", "t_length",
-                 "strand", "length", "error", "cigar", "is_valid",
-                 "is_transmuted", "breaking_points")
+                 "strand", "length", "error", "cigar", "cigar_runs",
+                 "is_valid", "is_transmuted", "breaking_points")
 
     def __init__(self):
         self.q_name: Optional[str] = None
@@ -47,6 +49,7 @@ class Overlap:
         self.length = 0
         self.error = 0.0
         self.cigar: str = ""
+        self.cigar_runs = None     # (lengths, codes) from the card
         self.is_valid = True
         self.is_transmuted = False
         self.breaking_points: Optional[np.ndarray] = None  # (2k, 2) [t, q]
@@ -131,11 +134,12 @@ class Overlap:
             raise InvalidInputError("overlap is not transmuted")
         if self.breaking_points is not None:
             return
-        if not self.cigar:
+        if not self.cigar and self.cigar_runs is None:
             self.cigar = aligner(self.query_span(sequences),
                                  self.target_span(sequences))
         self.find_breaking_points_from_cigar(window_length)
         self.cigar = ""
+        self.cigar_runs = None
 
     def find_breaking_points_from_cigar(self, window_length: int) -> None:
         """Vectorised CIGAR walk (reference: src/overlap.cpp:226-292).
@@ -146,12 +150,19 @@ class Overlap:
         """
         w = window_length
         empty = np.empty((0, 2), dtype=np.int64)
-        ops = _CIGAR_RE.findall(self.cigar.encode())
-        if not ops:
+        if self.cigar_runs is not None:
+            # device-aligned overlaps hand over (lengths, codes) runs in
+            # "MIDNSHP=X" indices, skipping the CIGAR string round trip
+            lengths, codes = (a.astype(np.int64, copy=False)
+                              for a in self.cigar_runs)
+        else:
+            ops = _CIGAR_RE.findall(self.cigar.encode())
+            lengths = np.array([int(n) for n, _ in ops], dtype=np.int64)
+            codes = np.array([_OPS.index(op) for _, op in ops],
+                             dtype=np.int64)
+        if lengths.size == 0:
             self.breaking_points = empty
             return
-        lengths = np.array([int(n) for n, _ in ops], dtype=np.int64)
-        codes = np.array([_OPS.index(op) for _, op in ops], dtype=np.int64)
         # advance masks per op: M(0) = X(8) = '='(7) advance both;
         # I(1) query; D(2)/N(3) target; S/H/P consume nothing.
         advances_t = np.isin(codes, (0, 2, 3, 7, 8))

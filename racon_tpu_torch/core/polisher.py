@@ -6,9 +6,10 @@ consensus -> stitching, in the stage order of the JAX package's
 ``find_overlap_breaking_points`` (:523), ``_build_windows`` (:646),
 ``generate_consensuses`` (:697) and ``polish`` (:709).  The accelerator
 seam is the reference's (src/polisher.hpp:55,74): the CUDA subclass
-(racon_tpu_torch.cuda.polisher) overrides ``generate_consensuses`` to
-run the POA kernel, with the CPU engine for whatever the kernel
-rejects.  Stage walls land in ``stage_walls``.
+(racon_tpu_torch.cuda.polisher) overrides
+``find_overlap_breaking_points`` to run the align kernels and
+``generate_consensuses`` to run the POA kernel, with the CPU engines for
+whatever the kernels leave.  Stage walls land in ``stage_walls``.
 """
 
 from __future__ import annotations
@@ -43,10 +44,13 @@ def create_polisher(sequences_path: str, overlaps_path: str,
                     mismatch: int, gap: int, num_threads: int,
                     cuda_poa_batches: int = 0,
                     cuda_banded_alignment: bool = False,
+                    cuda_aligner_batches: int = 0,
                     device=None) -> "Polisher":
     """Factory mirroring racon::createPolisher (src/polisher.cpp:55-159):
-    ``cuda_poa_batches > 0`` offloads the POA stage to the card
-    (``device``, default cuda), the reference's --cudapoa-batches."""
+    ``cuda_poa_batches > 0`` offloads the POA stage and
+    ``cuda_aligner_batches > 0`` the overlap alignment to the card
+    (``device``, default cuda), the reference's --cudapoa-batches and
+    --cudaaligner-batches."""
     if not isinstance(type_, PolisherType):
         raise InvalidInputError("invalid polisher type!")
     if window_length == 0:
@@ -57,10 +61,11 @@ def create_polisher(sequences_path: str, overlaps_path: str,
     args = (sparser, oparser, tparser, type_, window_length,
             quality_threshold, error_threshold, trim, match, mismatch, gap,
             num_threads)
-    if cuda_poa_batches > 0:
+    if cuda_poa_batches > 0 or cuda_aligner_batches > 0:
         from racon_tpu_torch.cuda.polisher import CudaPolisher
         return CudaPolisher(*args, cuda_poa_batches=cuda_poa_batches,
                             cuda_banded_alignment=cuda_banded_alignment,
+                            cuda_aligner_batches=cuda_aligner_batches,
                             device=device)
     return Polisher(*args)
 

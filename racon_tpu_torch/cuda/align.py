@@ -1,0 +1,98 @@
+"""Dispatch halves of the align kernels: encode a chunk of pairs, launch
+the kernel, and hand back a collect closure that decodes its results
+(the counterparts of ``align_dispatch``/``align_batch`` and
+``wfa_dispatch``/``wfa_batch`` in ``racon_tpu/tpu/align_pallas.py``).
+
+A dispatch launches exactly the pairs it is given: each pair's result
+depends on that pair alone, never on the batch it rides in.  On the
+card the launch is asynchronous, so ``run_pipelined`` keeps two chunks
+in flight: chunk k + 1 is encoded and launched before chunk k is
+collected.  A collect closure's ``kernel_ms()`` is the chunk's
+CUDA-event time once collected (0 on the CPU).
+"""
+
+from __future__ import annotations
+
+from collections import deque
+
+import numpy as np
+import torch
+
+from racon_tpu_torch.cuda import align_band as ab
+from racon_tpu_torch.cuda import align_wfa as aw
+from racon_tpu_torch.cuda import aligner as al
+
+
+def _lengths(seqs, device):
+    return torch.tensor([len(s) for s in seqs], dtype=torch.int32,
+                        device=device)
+
+
+def _timed(device, launch):
+    """Run ``launch()``; returns (outputs, kernel_ms getter)."""
+    if device.type != "cuda":
+        return launch(), lambda: 0.0
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    out = launch()
+    e1.record()
+    return out, lambda: e0.elapsed_time(e1)
+
+
+def wfa_dispatch(queries, targets, lq: int, emax: int, device):
+    """Launch one WFA chunk; ``collect()`` gives (tapes [n, entries]
+    int64, entry counts, distances) with distances exact (<= emax) or
+    ``BIG`` for rejected pairs."""
+    n = len(queries)
+    q = torch.from_numpy(al.encode_batch(queries, lq, al.QPAD)).to(device)
+    t = torch.from_numpy(al.encode_batch(targets, lq, al.TPAD)).to(device)
+    (tape, meta), ms = _timed(device, lambda: aw.wfa_align(
+        q, t, _lengths(queries, device), _lengths(targets, device),
+        emax=emax))
+
+    def collect():
+        tp = tape.cpu().numpy().reshape(n, -1).astype(np.int64)
+        mt = meta.cpu().numpy()
+        return tp, mt[:, 1], mt[:, 0]
+
+    collect.kernel_ms = ms
+    return collect
+
+
+def band_dispatch(queries, targets, lq: int, lt: int, wb: int, device,
+                  centers=None):
+    """Launch one banded chunk; ``centers`` holds one knot array per
+    pair (``estimate_center_knots``) or None for the proportional
+    diagonal.  ``collect()`` gives (moves [n, 16 * words] uint8, move
+    counts, distances, ``BIG`` out of band)."""
+    n = len(queries)
+    ctr = np.stack([
+        centers[k] if centers is not None and centers[k] is not None
+        else ab.proportional_knots(len(queries[k]), len(targets[k]), lq)
+        for k in range(n)]).astype(np.int32)
+    q = torch.from_numpy(al.encode_batch(queries, lq, al.QPAD)).to(device)
+    t = torch.from_numpy(al.encode_batch(targets, lt, al.TPAD)).to(device)
+    (tape, meta), ms = _timed(device, lambda: ab.band_align(
+        q, t, _lengths(queries, device), _lengths(targets, device),
+        torch.from_numpy(ctr).to(device), wb=wb))
+
+    def collect():
+        mt = meta.cpu().numpy()
+        return ab.unpack_moves(tape.cpu().numpy()), mt[:, 1], mt[:, 0]
+
+    collect.kernel_ms = ms
+    return collect
+
+
+def run_pipelined(chunks, dispatch, consume, depth: int = 2) -> None:
+    """Drive ``dispatch(chunk) -> collect`` over ``chunks`` with up to
+    ``depth`` dispatches in flight, consuming in order
+    (``consume(chunk, collect)``)."""
+    inflight = deque()
+    for sub in chunks:
+        inflight.append((sub, dispatch(sub)))
+        if len(inflight) >= depth:
+            consume(*inflight.popleft())
+    while inflight:
+        consume(*inflight.popleft())

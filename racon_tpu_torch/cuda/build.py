@@ -23,7 +23,17 @@ BUILD_DIR = os.path.join(_PKG_DIR, "build", "cuda")
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 
 #: kernel sources, by library name
-SOURCES = {"poa_full": "poa_full.cu"}
+SOURCES = {"poa_full": "poa_full.cu", "align_wfa": "align_wfa.cu",
+           "align_band": "align_band.cu"}
+
+_VP, _I = ctypes.c_void_p, ctypes.c_int
+#: argument types of each library's ``<name>_launch`` (pointers and the
+#: stream as c_void_p, so ctypes never cuts them to 32 bits)
+SIGNATURES = {
+    "poa_full": [_VP] * 8 + [ctypes.c_longlong] + [_I] * 13 + [_VP],
+    "align_wfa": [_VP] * 7 + [_I] * 5 + [_VP],
+    "align_band": [_VP] * 8 + [_I] * 6 + [_VP],
+}
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -85,23 +95,22 @@ def build_all(names: List[str] = None) -> Dict[str, dict]:
     return BUILD_LOG
 
 
-def load(name: str = "poa_full") -> ctypes.CDLL:
+def load(name: str) -> ctypes.CDLL:
     """The bound library of one kernel, built at first use."""
     with _lock:
         if name in _libs:
             return _libs[name]
         build_all([name])
         lib = ctypes.CDLL(lib_path(name))
-        if name == "poa_full":
-            vp, i = ctypes.c_void_p, ctypes.c_int
-            lib.poa_full_launch.restype = i
-            lib.poa_full_launch.argtypes = [vp] * 8 + [ctypes.c_longlong] \
-                + [i] * 13 + [vp]
-            lib.poa_full_error_string.restype = ctypes.c_char_p
-            lib.poa_full_error_string.argtypes = [i]
+        launch = getattr(lib, f"{name}_launch")
+        launch.restype = _I
+        launch.argtypes = SIGNATURES[name]
+        err = getattr(lib, f"{name}_error_string")
+        err.restype = ctypes.c_char_p
+        err.argtypes = [_I]
         _libs[name] = lib
         return lib
 
 
-def error_string(err: int) -> str:
-    return load("poa_full").poa_full_error_string(err).decode()
+def error_string(name: str, err: int) -> str:
+    return getattr(load(name), f"{name}_error_string")(err).decode()

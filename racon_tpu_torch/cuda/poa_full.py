@@ -143,7 +143,7 @@ def poa_full(seqs, wts, meta, nlay, bblen, *, v: int, lp: int, wb: int,
         raise ValueError(f"unsupported device {seqs.device}")
     from racon_tpu_torch.cuda import build
 
-    lib = build.load()
+    lib = build.load("poa_full")
     dev = seqs.device
     cons = torch.zeros((b, v), dtype=torch.int32, device=dev)
     mout = torch.zeros((b, 8), dtype=torch.int32, device=dev)
@@ -160,7 +160,7 @@ def poa_full(seqs, wts, meta, nlay, bblen, *, v: int, lp: int, wb: int,
             p, s, a, match, mismatch, gap, wtype, trim, stream)
     if err != 0:
         raise RuntimeError(f"poa_full kernel launch failed: "
-                           f"{build.error_string(err)} ({err})")
+                           f"{build.error_string('poa_full', err)} ({err})")
     LAUNCHES += 1
     return cons, mout
 

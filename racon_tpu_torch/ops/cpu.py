@@ -1,7 +1,7 @@
 """ctypes bindings to the native CPU compute engines.
 
 The shared library provides the edlib-equivalent global aligner (the
-breaking-point re-alignment of every overlap in this slice) and the
+breaking-point re-alignment of overlaps the card does not align) and the
 spoa-equivalent POA consensus engine (windows the CUDA kernel rejects).
 Calls release the GIL, so the polisher's thread pool runs them in
 parallel.
@@ -89,6 +89,12 @@ def edit_distance(query: bytes, target: bytes) -> int:
 
 def align(query: bytes, target: bytes) -> str:
     """Global alignment; returns a standard CIGAR (M covers mismatches)."""
+    return align_with_distance(query, target)[0]
+
+
+def align_with_distance(query: bytes, target: bytes) -> Tuple[str, int]:
+    """Global alignment; returns (CIGAR, edit distance) -- the distance
+    feeds the align ladder's divergence probe."""
     lib = get_library()
     cap = 4 * (len(query) + len(target)) + 16
     buf = ctypes.create_string_buffer(cap)
@@ -99,7 +105,7 @@ def align(query: bytes, target: bytes) -> str:
         raise RuntimeError(
             f"[racon_tpu_torch::align] native aligner failed (code {n}) "
             f"on pair ({len(query)} x {len(target)})")
-    return buf.raw[:n].decode()
+    return buf.raw[:n].decode(), int(dist.value)
 
 
 class PoaEngine:
