@@ -7,14 +7,27 @@ Needs one CUDA card.  Phases, one JSON line each:
 
 1. env          card name and power limit, torch and CUDA versions;
 2. build        nvcc builds every kernel from the checkout's sources,
-                all started together, with ptxas registers and spills;
+                all started together, with ptxas registers and spills
+                (a POA spill fails the run), and the POA kernel's
+                dynamic shared memory and resident blocks per pass;
 3. dataset      simulates an E. coli-sized ONT set (4,641,652 bp,
                 30x, 8 kb reads, seed 7) and cuts a 120 kb region of
                 it whose windows and overlaps feed the checks below;
 4. kernel_check 32 real windows at stock caps (V 2048, LP 1024,
-                WB 256) plus tiny windows (and a forced reject): the
-                POA kernel and its plain PyTorch version on the card
-                must agree exactly on cons[:len] and mout[:, :5];
+                WB 256) plus tiny windows (a forced reject and the three
+                stress windows of tools/poa_windows.py, which take the
+                kernel's device-memory pred and row paths and its
+                second pass): the POA
+                kernel and its plain PyTorch version on the card must
+                agree exactly on cons[:len], mout[:, :5] and the
+                shared-memory path counts; then a full-card batch, the
+                region's fitting windows tiled to >= 4x the kernel's
+                resident blocks, every replica equal to its original,
+                with ms, windows/s, ring hit rate and phase shares; and
+                the same for the windows of a deeper set (100 kb at
+                60x), with the share of windows past the first pass or
+                the cap and one second-pass window held against the
+                plain version;
 5. align_check  32 real overlaps of the region at their real lengths:
                 the WFA kernel (emax 2048) and the banded kernel (wb
                 2048, proportional knots; wb 4096 on measured knots for
@@ -28,7 +41,8 @@ Needs one CUDA card.  Phases, one JSON line each:
                 kernels launched, CPU fall-through <= 10% of the
                 device-eligible overlaps, POA rejects <= 10% of
                 eligible windows, polished distance to truth <= draft
-                distance / 10;
+                distance / 10; with the POA kernel's summed phase
+                cycles and every kernel's main-path bound;
 7. native_compare  200 region windows on the POA kernel and on the
                 native CPU engine: summed edit distance between the two;
 8. kernels      every ported kernel with its launches in phase 6.
@@ -43,6 +57,7 @@ import argparse
 import json
 import os
 import random
+import re
 import statistics
 import shutil
 import subprocess
@@ -53,23 +68,33 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 if ROOT not in sys.path:
     sys.path.insert(0, ROOT)
 
-# published H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, and the
-# non-tensor-core float32 rate, used as the ceiling of the kernel's
-# int32 ALU operations
+# H100 SXM ceilings: HBM bytes/s from NVIDIA's data sheet; int32 ALU
+# operations/s from the Hopper architecture white paper's SM (64 INT32
+# lanes of 132 SMs at the 1.98 GHz boost clock: 16.7 T ops/s; the data
+# sheet's 67 TFLOP/s float32 counts 128 FP32 lanes and an FMA as two)
 HBM_BYTES_PER_S = 3.35e12
-ALU_OPS_PER_S = 67e12
-# int32 operations per DP cell (per-slot load/shift/compare/select,
-# substitution, the diag/vert candidates, the max-plus scan, the
-# direction code and the packed store), counted from csrc/poa_full.cu
-OPS_PER_CELL = 32
-# int32 operations per wavefront cell (one diagonal at one step: three
-# neighbour loads, the three candidates with their boundary tests, the
-# max, one 8-base slide compare, two stores), from csrc/align_wfa.cu
-OPS_PER_WFA_CELL = 24
-# int32 operations per band cell (target load and compare, the diagonal
-# and vertical candidates, the masks, the thread-local and block prefix
-# minimum, the direction code and its packing), from csrc/align_band.cu
-OPS_PER_BAND_CELL = 20
+ALU_OPS_PER_S = 132 * 64 * 1.98e9
+# The operation counts below are the least int32 ALU work of each
+# function per DP cell, whatever kernel computes it: no loads, stores,
+# address arithmetic or scan overhead.
+# POA (score H[j] of a graph node at band column j): substitution 2
+# (compare, select), the diagonal and vertical candidates 2 (adds),
+# their max 1, the gap chain max(M[j], H[j-1] + gap) 2, the direction
+# code 4 (two compares, two selects), clip and pack 4 (min, max, shift,
+# or)
+OPS_PER_CELL = 15
+# POA, per cell and per pred row past a rank's first: the compare and
+# the selects of the max and of its slot
+OPS_PER_EXTRA_PRED = 3
+# WFA (one diagonal at one step): the substitution and gap candidates 2
+# (adds), their max 2, the clip to both sequence ends 2, one compare
+# that ends the extension 1
+OPS_PER_WFA_CELL = 7
+# band (one query row at one band column): substitution compare 1, the
+# diagonal and vertical candidates 2, their min 1, the in-row chain
+# min(H[j], H[j-1] + 1) 2, the 2-bit direction 4 (two compares, two
+# selects) and its packing 2 (shift, or)
+OPS_PER_BAND_CELL = 12
 
 
 def emit(phase: str, **kw) -> None:
@@ -360,6 +385,15 @@ def bound(in_bytes: int, out_bytes: int, ops: int) -> tuple:
         "bytes" if bytes_ms >= ops_ms else "operations"
 
 
+def poa_ops(cells: int, pred_rows: int, wb: int) -> int:
+    """int32 operations of the POA DP over ``cells`` band cells (rank
+    steps x wb) that folded ``pred_rows`` pred rows in all: every rank
+    past its first pred pays OPS_PER_EXTRA_PRED per column (a lower
+    bound where a rank has no pred)."""
+    return cells * OPS_PER_CELL + \
+        max(0, pred_rows * wb - cells) * OPS_PER_EXTRA_PRED
+
+
 def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
@@ -444,6 +478,228 @@ def align_check(region, dev, cpu) -> dict:
     return res
 
 
+def poa_resources(dev, sms: int) -> dict:
+    """Dynamic shared memory and resident blocks of the POA kernel's
+    two passes at the stock caps (one warp per block)."""
+    from racon_tpu_torch.cuda import poa_full as pf
+
+    wb = pf.band_width(1024)
+    out = {"threads_per_block": 32}
+    for name, nodes in (("first_pass", pf.first_pass_nodes(2048)),
+                        ("second_pass", 2048)):
+        slots = pf.resident_slots(dev, nodes, 1024, wb)
+        out[name] = {"graph_nodes": nodes,
+                     "dynamic_smem_bytes": pf.smem_bytes(nodes, 1024, wb),
+                     "resident_blocks": slots, "blocks_per_sm": slots / sms}
+    return out
+
+
+def phase_split(mout) -> dict:
+    """Cycle sums and shares of the kernel's phase counters
+    (mout[:, 5:8]) over a batch."""
+    from racon_tpu_torch.cuda.poa import PHASES
+    tot = mout[:, 5:8].to("cpu").long().sum(0).tolist()
+    return {name: {"cycles": c, "share": c / max(1, sum(tot))}
+            for name, c in zip(PHASES, tot)}
+
+
+def ring_hit_rate(stats) -> float:
+    hits, misses = (int(x) for x in stats[:, :2].long().sum(0).tolist())
+    return hits / max(1, hits + misses)
+
+
+def poa_check(fitting, dev, stock) -> tuple:
+    """Phase 4a: the POA kernel against its plain version on 32 real
+    windows and on the tiny windows; returns (check dict, kernel ms,
+    plain ms) of the 32."""
+    import torch
+    from racon_tpu_torch import convert
+    from racon_tpu_torch.core.window import WindowType
+    from racon_tpu_torch.cuda import poa_full as pf
+    from racon_tpu_torch.tools.poa_windows import stress_windows
+
+    def stats_for(inputs):
+        return torch.zeros((inputs[0].shape[0], 3), dtype=torch.int32,
+                           device=inputs[0].device)
+
+    windows32 = fitting[:32]
+    if len(windows32) < 32:
+        raise RuntimeError(f"only {len(windows32)} region windows fit")
+    pk = convert.pack_windows(windows32, 1024, 2048)
+    inputs = convert.to_device(pk.seqs, pk.wts, pk.meta, pk.nlay,
+                               pk.bblen, dev)
+    kst, pst = stats_for(inputs), stats_for(inputs)
+    kern = pf.poa_full(*inputs, **stock, stats=kst)
+    torch.cuda.synchronize()
+    ms = statistics.median(cuda_ms(lambda: pf.poa_full(*inputs, **stock),
+                                   5))
+    t0 = time.perf_counter()
+    plain = pf.poa_full_reference(*inputs, **stock, stats=pst)
+    torch.cuda.synchronize()
+    plain_ms = 1e3 * (time.perf_counter() - t0)
+    mismatches, max_err = compare(kern, plain)
+    stats_bad = int((kst != pst).any(dim=1).sum())
+    rank_steps = int(kern[1][:, 4].sum())
+    pred_rows = int(kst[:, :2].sum())
+    bms, by = bound(nbytes(*inputs), nbytes(*kern),
+                    poa_ops(rank_steps * stock["wb"], pred_rows,
+                            stock["wb"]))
+    check = {"windows": len(windows32),
+             "batch": int(inputs[0].shape[0]), "mismatches": mismatches,
+             "stats_mismatches": stats_bad, "max_abs_err": max_err,
+             "kernel_ms": round(ms, 4), "plain_ms": round(plain_ms, 1),
+             "rank_steps": rank_steps, "pred_rows": pred_rows,
+             "bound_ms": bms, "bound_by": by,
+             "ring_hit_rate": ring_hit_rate(kst[:32]),
+             "ring_misses": int(kst[:32, 1].sum()),
+             "pred_overflow_reads": int(kst[:32, 2].sum()),
+             "phases": phase_split(kern[1][:32])}
+    rng = random.Random(3)
+    for wtype, trim in ((WindowType.TGS, 1), (WindowType.NGS, 0)):
+        tiny = tiny_windows(rng, wtype)
+        stress, _ = stress_windows(wtype, seed=3, rank0=len(tiny))
+        # many preds, an old pred row, a graph past the first pass
+        tiny += stress
+        tp = convert.pack_windows(tiny, 256, 256)
+        targs = convert.to_device(tp.seqs, tp.wts, tp.meta, tp.nlay,
+                                  tp.bblen, dev)
+        kw = dict(v=256, lp=256, wb=256, match=5, mismatch=-4, gap=-8,
+                  wtype=wtype.value, trim=trim)
+        tk, tpl = stats_for(targs), stats_for(targs)
+        kout = pf.poa_full(*targs, **kw, stats=tk)
+        bad, err = compare(kout, pf.poa_full_reference(*targs, **kw,
+                                                       stats=tpl))
+        sbad = int((tk != tpl).any(dim=1).sum())
+        rejected = int((kout[1][:, 0] < 0).sum())
+        n = len(tiny)
+        big_nodes, big_len = (int(x) for x in kout[1][n - 1, [3, 0]])
+        check[f"tiny_{wtype.name}_trim{trim}"] = {
+            "windows": n, "mismatches": bad, "stats_mismatches": sbad,
+            "rejected": rejected,
+            "stress_pred_overflow_reads": int(tk[n - 3, 2]),
+            "stress_ring_misses": int(tk[n - 2, 1]),
+            "stress_second_pass_nodes": big_nodes}
+        mismatches += bad
+        stats_bad += sbad
+        max_err = max(max_err, err)
+        if rejected < 1:
+            raise RuntimeError("the forced reject window was not rejected")
+        if int(tk[n - 3, 2]) < 1 or int(tk[n - 2, 1]) < 1:
+            raise RuntimeError("a stress window missed its device-memory "
+                               "path")
+        if big_nodes <= pf.first_pass_nodes(256) or big_len <= 0:
+            raise RuntimeError("the big-graph stress window did not "
+                               "complete in the second pass")
+    check["mismatches"], check["max_abs_err"] = mismatches + stats_bad, \
+        max_err
+    return check, ms, plain_ms
+
+
+def full_card(fitting, dev, stock, plain_second_pass: int = 0) -> dict:
+    """Phase 4b: the region's fitting windows tiled to >= 4x the
+    kernel's resident blocks (first pass) in one call; every replica
+    must equal its original's kernel output (cons[:len], mout[:, :5]).
+    With ``plain_second_pass``, up to that many originals that completed
+    in the second pass are also held against the plain version.  The
+    batch is timed again with the kernel in one pass at the whole cap
+    (the first pass's graph made as large as the second's), outputs
+    held equal, to weigh the two-pass split on this traffic."""
+    import numpy as np
+    import torch
+    from racon_tpu_torch import convert
+    from racon_tpu_torch.cuda import poa_full as pf
+    from racon_tpu_torch.cuda.poa import FAIL_NAMES
+
+    # the first pass holds the most windows at once
+    slots = pf.resident_slots(dev, pf.first_pass_nodes(stock["v"]),
+                              stock["lp"], stock["wb"])
+    n = len(fitting)
+    tiled = fitting * (-(-4 * slots // n))
+
+    def packed(ws):
+        pk = convert.pack_windows(ws, stock["lp"], stock["v"])
+        return convert.to_device(pk.seqs, pk.wts, pk.meta, pk.nlay,
+                                 pk.bblen, dev)
+
+    oc, om = (t.cpu().numpy() for t in pf.poa_full(*packed(fitting),
+                                                   **stock))
+    inputs = packed(tiled)
+    st = torch.zeros((inputs[0].shape[0], 3), dtype=torch.int32,
+                     device=dev)
+    kc, km = pf.poa_full(*inputs, **stock, stats=st)
+    torch.cuda.synchronize()
+    ms = statistics.median(cuda_ms(lambda: pf.poa_full(*inputs, **stock),
+                                   3))
+    keep = pf.first_pass_nodes
+    pf.first_pass_nodes = lambda v: v
+    try:
+        one = pf.poa_full(*inputs, **stock)
+        torch.cuda.synchronize()
+        one_ms = statistics.median(cuda_ms(
+            lambda: pf.poa_full(*inputs, **stock), 3))
+    finally:
+        pf.first_pass_nodes = keep
+    bad, _ = compare(one, (kc, km))
+    kc, km_h = kc.cpu().numpy(), km.cpu().numpy()
+    for i in range(len(tiled)):
+        j = i % n
+        length = max(int(om[j, 0]), 0)
+        bad += not ((km_h[i, :5] == om[j, :5]).all()
+                    and (kc[i, :length] == oc[j, :length]).all())
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    vs = pf.first_pass_nodes(stock["v"])
+    second = [j for j in range(n) if om[j, 3] > vs and om[j, 0] >= 0]
+    plain_checked = second[:plain_second_pass]
+    if plain_checked:
+        ppk = convert.pack_windows([fitting[j] for j in plain_checked],
+                                   stock["lp"], stock["v"])
+        pin = convert.to_device(ppk.seqs, ppk.wts, ppk.meta, ppk.nlay,
+                                ppk.bblen, dev)
+        pbad, _ = compare(pf.poa_full(*pin, **stock),
+                          pf.poa_full_reference(*pin, **stock))
+        bad += pbad
+    codes = [int(c) for c in om[:n, 2][om[:n, 0] < 0]]
+    return {"slots": slots, "blocks_per_sm": slots / sms,
+            "first_pass_nodes": vs,
+            "second_pass_windows": int((km_h[:len(tiled), 3] > vs).sum()),
+            "originals": n, "originals_past_first_pass": int(
+                (om[:n, 3] > vs).sum()),
+            "originals_rejected": {FAIL_NAMES[c]: codes.count(c)
+                                   for c in sorted(set(codes))},
+            "second_pass_plain_checked": len(plain_checked),
+            "originals_nodes_pct": [int(x) for x in np.percentile(
+                om[:n, 3], [50, 90, 99, 100])],
+            "windows": len(tiled),
+            "batch": int(inputs[0].shape[0]), "mismatches": bad,
+            "rejected": int((km_h[:len(tiled), 0] < 0).sum()),
+            "kernel_ms": round(ms, 3),
+            "windows_per_s": len(tiled) / (ms / 1e3),
+            "one_pass_kernel_ms": round(one_ms, 3),
+            "ring_hit_rate": ring_hit_rate(st[:len(tiled)]),
+            "ring_misses": int(st[:len(tiled), 1].sum()),
+            "pred_overflow_reads": int(st[:len(tiled), 2].sum()),
+            "phases": phase_split(km[:len(tiled)])}
+
+
+def deep_windows(work: str, threads: int, engine) -> list:
+    """The POA windows (>= 3 sequences, fitting the engine's caps) of a
+    deeper set: 100 kb simulated as the dataset is (ONT model, 8 kb
+    reads) but at 60x coverage, seed 11."""
+    from racon_tpu_torch.core.polisher import PolisherType, create_polisher
+    from racon_tpu_torch.tools import simulate
+
+    paths = simulate.simulate(os.path.join(work, "deep"),
+                              genome_len=100_000, coverage=60,
+                              read_len=8000, seed=11, ont=True)
+    pol = create_polisher(*paths, PolisherType.kC, 500, 10.0, 0.3, True,
+                          5, -4, -8, threads)
+    pol.initialize()
+    wins = [w for w in pol.windows
+            if len(w.sequences) >= 3 and engine.fits([w])]
+    pol.close()
+    return wins
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--genome-len", type=int, default=4_641_652)
@@ -479,11 +735,19 @@ def main(argv=None) -> int:
     # ---- build ----------------------------------------------------------
     t0 = time.perf_counter()
     log = build.build_all()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    spills = [int(n) for l in log["poa_full"]["ptxas"].splitlines()
+              for n in re.findall(r"(\d+) bytes spill", l)]
     emit("build", seconds=round(time.perf_counter() - t0, 3),
          kernels={n: {"seconds": round(r["seconds"], 3),
                       "ptxas": [l for l in r["ptxas"].splitlines()
                                 if "registers" in l or "spill" in l]}
-                  for n, r in log.items()})
+                  for n, r in log.items()},
+         poa_full_stock=poa_resources(dev, sms))
+    if "registers" not in log["poa_full"]["ptxas"]:
+        raise RuntimeError("no ptxas report for poa_full")
+    if any(spills):
+        raise RuntimeError(f"poa_full spills registers: {spills} bytes")
     cpu.get_library()
 
     # ---- dataset ------------------------------------------------------
@@ -507,53 +771,25 @@ def main(argv=None) -> int:
     stock = dict(v=2048, lp=1024, wb=pf.band_width(1024), match=5,
                  mismatch=-4, gap=-8, wtype=1, trim=1)
     engine = CudaPoaBatchEngine(5, -4, -8, device=dev)
-    windows32 = [w for w in region_windows if engine.fits([w])][:32]
-    if len(windows32) < 32:
-        raise RuntimeError(f"only {len(windows32)} region windows fit")
-    pk = convert.pack_windows(windows32, 1024, 2048)
-    inputs = convert.to_device(pk.seqs, pk.wts, pk.meta, pk.nlay,
-                               pk.bblen, dev)
-    kern = pf.poa_full(*inputs, **stock)
-    torch.cuda.synchronize()
-    ms = statistics.median(cuda_ms(lambda: pf.poa_full(*inputs, **stock),
-                                   5))
-    t0 = time.perf_counter()
-    plain = pf.poa_full_reference(*inputs, **stock)
-    torch.cuda.synchronize()
-    plain_ms = 1e3 * (time.perf_counter() - t0)
-    mismatches, max_err = compare(kern, plain)
-    rank_steps = int(kern[1][:, 4].sum())
-    in_bytes = sum(t.numel() * t.element_size() for t in inputs)
-    out_bytes = sum(t.numel() * t.element_size() for t in kern)
-    bytes_ms = 1e3 * (in_bytes + out_bytes) / HBM_BYTES_PER_S
-    ops_ms = 1e3 * rank_steps * stock["wb"] * OPS_PER_CELL / ALU_OPS_PER_S
-    check = {"windows": len(windows32),
-             "batch": int(inputs[0].shape[0]), "mismatches": mismatches,
-             "max_abs_err": max_err, "kernel_ms": round(ms, 4),
-             "plain_ms": round(plain_ms, 1), "rank_steps": rank_steps,
-             "bound_ms": max(bytes_ms, ops_ms),
-             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
-    rng = random.Random(3)
-    for wtype, trim in ((WindowType.TGS, 1), (WindowType.NGS, 0)):
-        tiny = tiny_windows(rng, wtype)
-        tp = convert.pack_windows(tiny, 256, 256)
-        targs = convert.to_device(tp.seqs, tp.wts, tp.meta, tp.nlay,
-                                  tp.bblen, dev)
-        kw = dict(v=256, lp=256, wb=256, match=5, mismatch=-4, gap=-8,
-                  wtype=wtype.value, trim=trim)
-        bad, err = compare(pf.poa_full(*targs, **kw),
-                           pf.poa_full_reference(*targs, **kw))
-        rejected = int((pf.poa_full(*targs, **kw)[1][:, 0] < 0).sum())
-        check[f"tiny_{wtype.name}_trim{trim}"] = {
-            "windows": len(tiny), "mismatches": bad, "rejected": rejected}
-        mismatches += bad
-        max_err = max(max_err, err)
-        if rejected < 1:
-            raise RuntimeError("the forced reject window was not rejected")
+    fitting = [w for w in region_windows if engine.fits([w])]
+    check, ms, plain_ms = poa_check(fitting, dev, stock)
+    mismatches, max_err = check["mismatches"], check["max_abs_err"]
     emit("kernel_check", **check)
     if mismatches:
         raise RuntimeError(f"kernel disagrees with its plain version on "
                            f"{mismatches} window(s)")
+    card_batch = full_card(fitting, dev, stock)
+    emit("full_card", **card_batch)
+    if card_batch["mismatches"]:
+        raise RuntimeError(f"{card_batch['mismatches']} replica(s) of the "
+                           "full-card batch differ from their originals")
+    deep = full_card(deep_windows(work, args.threads, engine), dev, stock,
+                     plain_second_pass=1)
+    emit("deep_card", coverage=60, **deep)
+    if deep["mismatches"]:
+        raise RuntimeError(f"{deep['mismatches']} window(s) of the deep "
+                           "batch differ from their originals or from the "
+                           "plain version")
 
     # ---- align_check ----------------------------------------------------
     acheck = align_check(region, dev, cpu)
@@ -595,6 +831,15 @@ def main(argv=None) -> int:
          rejected=polisher.poa_reject_counts,
          skipped_layers=eng.n_skipped_layers,
          kernel_ms=round(eng.kernel_ms, 3), dp_cells=eng.cells,
+         pred_rows=eng.pred_rows, phase_cycles=eng.phase_cycles,
+         main_path_bound_ms={
+             "poa_full": bound(0, 0, poa_ops(eng.cells, eng.pred_rows,
+                                             eng.wb))[0],
+             "align_wfa": bound(0, 0, polisher.align_cells["align_wfa"]
+                                * OPS_PER_WFA_CELL)[0],
+             "align_band": bound(0, 0, polisher.align_cells["align_band"]
+                                 * OPS_PER_BAND_CELL)[0]},
+         align_cells=polisher.align_cells,
          align_eligible=polisher.align_eligible,
          align_probed=polisher.align_probed,
          align_over_length=polisher.align_over_length,

@@ -30,10 +30,13 @@ _VP, _I = ctypes.c_void_p, ctypes.c_int
 #: argument types of each library's ``<name>_launch`` (pointers and the
 #: stream as c_void_p, so ctypes never cuts them to 32 bits)
 SIGNATURES = {
-    "poa_full": [_VP] * 8 + [ctypes.c_longlong] + [_I] * 13 + [_VP],
+    "poa_full": [_VP] * 10 + [ctypes.c_longlong] + [_I] * 16 + [_VP],
     "align_wfa": [_VP] * 7 + [_I] * 5 + [_VP],
     "align_band": [_VP] * 8 + [_I] * 6 + [_VP],
 }
+
+#: other C functions of a library: name -> (argument types, result)
+EXTRA = {"poa_full": {"poa_full_slots": ([_I] * 3, _I)}}
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -79,13 +82,23 @@ def build_all(names: List[str] = None) -> Dict[str, dict]:
     errors = []
     for n, started in procs.items():
         if started is None:
-            BUILD_LOG.setdefault(n, {"seconds": 0.0, "ptxas": "cached"})
+            # built by an earlier process: its ptxas report was kept
+            # beside the library
+            if n not in BUILD_LOG:
+                try:
+                    with open(lib_path(n) + ".ptxas") as fh:
+                        report = fh.read()
+                except OSError:
+                    report = "cached"
+                BUILD_LOG[n] = {"seconds": 0.0, "ptxas": report}
             continue
         proc, t0 = started
         log, _ = proc.communicate()
         if proc.returncode != 0:
             errors.append(f"{n}:\n{log}")
             continue
+        with open(lib_path(n) + ".ptxas", "w") as fh:
+            fh.write(log.strip())
         os.replace(lib_path(n) + ".tmp", lib_path(n))
         BUILD_LOG[n] = {"seconds": time.perf_counter() - t0,
                         "ptxas": log.strip()}
@@ -108,6 +121,9 @@ def load(name: str) -> ctypes.CDLL:
         err = getattr(lib, f"{name}_error_string")
         err.restype = ctypes.c_char_p
         err.argtypes = [_I]
+        for fn, (argtypes, restype) in EXTRA.get(name, {}).items():
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = restype
         _libs[name] = lib
         return lib
 

@@ -29,6 +29,9 @@ FAIL_NAMES = {pf.FAIL_VCAP: "vcap", pf.FAIL_EDGE: "edge",
               pf.FAIL_KCAP: "kcap", pf.FAIL_ALIGNED: "aligned",
               pf.FAIL_PATH: "path"}
 
+#: the kernel's per-window cycle counters, mout[5], mout[6], mout[7]
+PHASES = ("dp", "traceback_merge", "other")
+
 
 class CudaPoaBatchEngine:
     """Whole-window POA over megabatches on ``device``.  Caps mirror
@@ -47,7 +50,14 @@ class CudaPoaBatchEngine:
         self.n_skipped_layers = 0
         self.windows_on_kernel = 0
         self.cells = 0
+        #: pred rows the DP folded into its rows (the kernel's ring hits
+        #: plus misses, ``stats[:, :2]``): one per real predecessor of
+        #: every rank
+        self.pred_rows = 0
         self.kernel_ms = 0.0        # CUDA-event time of the launches
+        #: the kernel's clock64() cycles summed over windows, by phase
+        #: (mout[5:8]; 0 from the plain version)
+        self.phase_cycles = dict.fromkeys(PHASES, 0)
         self._lock = threading.Lock()
 
     def depth_cap(self, windows) -> int:
@@ -93,6 +103,8 @@ class CudaPoaBatchEngine:
         args = convert.to_device(pk.seqs, pk.wts, pk.meta, pk.nlay,
                                  pk.bblen, self.device)
         cuda = self.device.type == "cuda"
+        stats = torch.zeros((pk.seqs.shape[0], 3), dtype=torch.int32,
+                            device=self.device)
         if cuda:
             ev0 = torch.cuda.Event(enable_timing=True)
             ev1 = torch.cuda.Event(enable_timing=True)
@@ -101,7 +113,7 @@ class CudaPoaBatchEngine:
             *args, v=self.vcap, lp=self.lcap, wb=self.wb,
             match=self.match, mismatch=self.mismatch, gap=self.gap,
             wtype=windows[0].type.value, trim=1 if trim else 0,
-            p=self.pcap, s=self.pcap, a=8)
+            p=self.pcap, s=self.pcap, a=8, stats=stats)
         if cuda:
             ev1.record()
         with self._lock:
@@ -110,12 +122,16 @@ class CudaPoaBatchEngine:
         def collect() -> List[Result]:
             n = len(windows)
             mo = mout[:n].cpu().numpy()
+            rows = int(stats[:n, :2].sum())
             cs = cons[:n].cpu().numpy()
             results: List[Result] = []
             with self._lock:
                 if cuda:
                     self.kernel_ms += ev0.elapsed_time(ev1)
                 self.cells += int(mo[:, 4].sum()) * self.wb
+                self.pred_rows += rows
+                for k, name in enumerate(PHASES):
+                    self.phase_cycles[name] += int(mo[:, 5 + k].sum())
                 for b, w in enumerate(windows):
                     length = int(mo[b, 0])
                     if pk.host_fail[b] or length < 0:

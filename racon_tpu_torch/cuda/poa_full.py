@@ -14,7 +14,13 @@ Inputs (the JAX package's packed layout, ``convert.pack_windows``):
 ``[B]`` int32.  Outputs: ``cons [B, V]`` int32 consensus characters
 (zero past the length) and ``mout [B, 8]`` int32: 0 length (-1 =
 failed, the window goes to the CPU engine), 1 status (2 = chimeric
-warning), 2 fail code, 3 graph nodes used, 4 DP rank steps.
+warning), 2 fail code, 3 graph nodes used, 4 DP rank steps, and from
+the kernel 5-7 the window's clock cycles in the DP walk, in traceback
++ merge and in the rest (the plain version writes 0 there).  An
+optional ``stats [B, 3]`` int32 output receives, per window, the pred
+rows the DP read from the kernel's shared-memory ring, those it read
+from device memory, and the pred slots past the shared-memory mirror it
+read.
 
 ``poa_full`` launches the kernel (``csrc/poa_full.cu``) for CUDA
 tensors and runs ``poa_full_reference`` for CPU tensors.  The plain
@@ -47,6 +53,12 @@ CLIP = 1 << 24        # stored scores are clipped to [-CLIP, CLIP]
 SINK_FLOOR = -(1 << 22)
 INF16 = 0xFFFF        # "no successor" anchor sentinel
 FULL_SPAN_END = 0xFFFE
+# the kernel's shared-memory graph (csrc/poa_full.cu kR, kPM, kMaxP)
+RING_ROWS = 8         # DP rows in the ring; a row is read from it
+                      # while fewer than RING_ROWS ranks old
+PRED_MIRROR = 4       # pred ids per node in shared memory
+MAX_PREDS = 16        # pred slots (the consensus masks are 16 bits)
+SMEM_MAX = 232_448    # dynamic shared memory one block may opt in to
 
 #: kernel launches made by ``poa_full`` (plain-version calls excluded)
 LAUNCHES = 0
@@ -70,32 +82,92 @@ def path_radix(lp: int) -> int:
 
 def scratch_words(v: int, lp: int, wb: int, p: int, s: int,
                   a: int) -> int:
-    """int32 words of device scratch one window needs: the DP rows
-    [V, WB], adjacency and weights [V, P+P+S+A], twelve per-node
-    scalar arrays and the path tape (V + LP)."""
-    return v * (wb + 2 * p + s + a + 12) + v + lp
+    """int32 words of device scratch one resident block of the kernel
+    needs (the wrapper allocates one slice per block, not per window):
+    the DP rows by rank [V, WB], pred slots past the mirror [V, P - 4],
+    pred weights [V, P] and aligned-sibling rows [V, A]."""
+    return v * (wb + max(p - PRED_MIRROR, 0) + p + a)
 
 
-def smem_bytes(lp: int, wb: int) -> int:
-    """Shared memory one block uses: the staged layer (LP + 256
-    characters as int32), two band rows and the scan scratch."""
-    return 4 * ((lp + 256) + 2 * wb + 64)
+def _a16(x: int) -> int:
+    return (x + 15) & ~15
+
+
+def smem_bytes(v: int, lp: int, wb: int) -> int:
+    """Dynamic shared memory of one block (one window's graph of ``v``
+    nodes): the ring region (RING_ROWS rows or the path tape, whichever
+    is larger; later the consensus scores), the pred-id mirror, six
+    u16 and five u8 per-node arrays and the staged layer's characters
+    (LP + 256) and weights, each 16-byte aligned."""
+    ring = max(RING_ROWS * wb * 4, (v + lp) * 4)
+    return (_a16(ring) + _a16(v * PRED_MIRROR * 2) + 6 * _a16(2 * v)
+            + 5 * _a16(v) + _a16(lp + 256) + _a16(lp))
 
 
 def fits(v: int, lp: int, d1: int, p: int, s: int, a: int,
          wb: int) -> bool:
-    """True when the kernel takes this shape: one thread per band
-    column (wb a multiple of 128, at most 1024 threads), direction
-    codes below 64, the packed path inside int32, the anchor sentinels
-    clear of every anchor, the band-slope product inside int32, and
-    the block's shared memory inside the 48 KB a launch gets without
-    opting in."""
-    return (wb % Q == 0 and Q <= wb <= 1024 and 2 * p + 1 < 64
-            and p >= 1 and s >= 1 and 1 <= a <= 32
+    """True when the kernel takes this shape: a band of 8 columns per
+    lane of one warp (wb 256, the band of every cap the polisher
+    fits), direction codes below 64 and at most MAX_PREDS pred slots,
+    counts that fit the u8 node fields, the packed path inside int32,
+    node ids and anchors inside the u16 fields, the band-slope product
+    inside int32, 16-byte staged rows, and the window's graph inside
+    the shared memory one block may opt in to."""
+    return (wb == 256 and 1 <= p <= MAX_PREDS
+            and 1 <= s <= 255 and 1 <= a <= 32
             and v * lp * 256 < 2 ** 31
             and (v + 2) * path_radix(lp) < 2 ** 31
-            and v <= 0x8000 and lp < FULL_SPAN_END and 1 <= d1 <= 256
-            and smem_bytes(lp, wb) <= 48 << 10)
+            and v <= 0x8000 and lp <= 16384 and 1 <= d1 <= 256
+            and v % 16 == 0 and lp % 16 == 0
+            and smem_bytes(v, lp, wb) <= SMEM_MAX)
+
+
+def first_pass_nodes(v: int) -> int:
+    """Nodes of the shared-memory graph in the kernel's first pass:
+    21/32 of the cap, so more windows are resident (five per H100 SM at
+    the stock caps instead of three).  The fraction is tuned for 30x
+    ONT windows of 500 bases, whose graphs fit in the 1,344 nodes.  A
+    window that outgrows it runs again, from the start, in a second
+    pass with the whole cap at fewer blocks per SM; deeper traffic
+    sends a large share of its windows there (chip_smoke.py's
+    ``deep_card`` phase measures the share at 60x)."""
+    return min(v, max(64, (v * 21 // 32) & ~15))
+
+
+_SLOTS = {}
+
+
+def resident_slots(device, v: int, lp: int, wb: int) -> int:
+    """Blocks of the kernel the card holds at once for this shape (SMs
+    x blocks per SM, from the CUDA occupancy calculator); raises when
+    the card takes none."""
+    from racon_tpu_torch.cuda import build
+
+    dev = torch.device(device)
+    key = (dev.index, v, lp, wb)
+    if key not in _SLOTS:
+        lib = build.load("poa_full")
+        with torch.cuda.device(dev):
+            n = lib.poa_full_slots(v, lp, wb)
+        if n <= 0:
+            why = build.error_string("poa_full", -n) if n else "no slot"
+            raise RuntimeError(f"poa_full kernel cannot be resident at "
+                               f"v={v} lp={lp} wb={wb}: {why}")
+        _SLOTS[key] = n
+    return _SLOTS[key]
+
+
+def pass_grids(device, b: int, v: int, lp: int,
+               wb: int) -> List[Tuple[int, int, int]]:
+    """(graph nodes, second-pass flag, grid blocks) of each pass of a
+    launch of ``b`` windows: the first pass with ``first_pass_nodes(v)``
+    nodes, then, when that is smaller than ``v``, the second with all
+    ``v``; each grid is the pass's resident blocks, at most ``b``.  The
+    launch allocates one scratch slice per block of its largest grid."""
+    vs = first_pass_nodes(v)
+    passes = [(vs, 0)] + ([(v, 1)] if vs < v else [])
+    return [(n, second, min(b, resident_slots(device, n, lp, wb)))
+            for n, second in passes]
 
 
 def check_inputs(seqs, wts, meta, nlay, bblen, *, v, lp, wb, p, s,
@@ -127,18 +199,29 @@ def check_inputs(seqs, wts, meta, nlay, bblen, *, v, lp, wb, p, s,
 
 def poa_full(seqs, wts, meta, nlay, bblen, *, v: int, lp: int, wb: int,
              match: int, mismatch: int, gap: int, wtype: int, trim: int,
-             p: int = 16, s: int = 16, a: int = 8):
+             p: int = 16, s: int = 16, a: int = 8, stats=None):
     """Consensus of every window of the batch: (cons [B, V] int32,
-    mout [B, 8] int32) on the inputs' device.  CUDA tensors launch
-    the kernel; CPU tensors run the plain version."""
+    mout [B, 8] int32) on the inputs' device; ``stats``, when given,
+    is a [B, 3] int32 tensor on that device filled in place.  CUDA
+    tensors launch the kernel, in two passes of resident blocks that
+    take the windows in batch order: the first with a shared-memory
+    graph of ``first_pass_nodes(v)`` nodes, the second with all ``v``
+    for the windows that outgrew it (device-side hand-over, no host
+    synchronisation); CPU tensors run the plain version."""
     global LAUNCHES
     b, d1 = check_inputs(seqs, wts, meta, nlay, bblen, v=v, lp=lp,
                          wb=wb, p=p, s=s, a=a)
+    if stats is not None and (stats.dtype != torch.int32
+                              or tuple(stats.shape) != (b, 3)
+                              or stats.device != seqs.device
+                              or not stats.is_contiguous()):
+        raise ValueError(f"stats must be contiguous int32 ({b}, 3) on "
+                         f"{seqs.device}")
     if seqs.device.type == "cpu":
         return poa_full_reference(
             seqs, wts, meta, nlay, bblen, v=v, lp=lp, wb=wb,
             match=match, mismatch=mismatch, gap=gap, wtype=wtype,
-            trim=trim, p=p, s=s, a=a)
+            trim=trim, p=p, s=s, a=a, stats=stats)
     if seqs.device.type != "cuda":
         raise ValueError(f"unsupported device {seqs.device}")
     from racon_tpu_torch.cuda import build
@@ -149,19 +232,29 @@ def poa_full(seqs, wts, meta, nlay, bblen, *, v: int, lp: int, wb: int,
     mout = torch.zeros((b, 8), dtype=torch.int32, device=dev)
     if b == 0:
         return cons, mout
+    if any(t.data_ptr() % 16 for t in (seqs, wts)):
+        raise ValueError("seqs and wts must be 16-byte aligned")
+    passes = pass_grids(dev, b, v, lp, wb)
     words = scratch_words(v, lp, wb, p, s, a)
-    scratch = torch.empty((b, words), dtype=torch.int32, device=dev)
+    scratch = torch.empty((max(g for *_, g in passes), words),
+                          dtype=torch.int32, device=dev)
+    queue = torch.zeros(3 + b, dtype=torch.int32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    with torch.cuda.device(dev):
-        err = lib.poa_full_launch(
-            seqs.data_ptr(), wts.data_ptr(), meta.data_ptr(),
-            nlay.data_ptr(), bblen.data_ptr(), cons.data_ptr(),
-            mout.data_ptr(), scratch.data_ptr(), words, b, v, lp, d1, wb,
-            p, s, a, match, mismatch, gap, wtype, trim, stream)
-    if err != 0:
-        raise RuntimeError(f"poa_full kernel launch failed: "
-                           f"{build.error_string('poa_full', err)} ({err})")
-    LAUNCHES += 1
+    for n, second, grid in passes:
+        with torch.cuda.device(dev):
+            err = lib.poa_full_launch(
+                seqs.data_ptr(), wts.data_ptr(), meta.data_ptr(),
+                nlay.data_ptr(), bblen.data_ptr(), cons.data_ptr(),
+                mout.data_ptr(),
+                None if stats is None else stats.data_ptr(),
+                scratch.data_ptr(), queue.data_ptr(), words, b, grid, v, n,
+                second, lp, d1, wb, p, s, a, match, mismatch, gap, wtype,
+                trim, stream)
+        if err != 0:
+            raise RuntimeError(
+                f"poa_full kernel launch failed: "
+                f"{build.error_string('poa_full', err)} ({err})")
+        LAUNCHES += 1
     return cons, mout
 
 
@@ -172,10 +265,12 @@ def poa_full(seqs, wts, meta, nlay, bblen, *, v: int, lp: int, wb: int,
 def poa_full_reference(seqs, wts, meta, nlay, bblen, *, v: int, lp: int,
                        wb: int, match: int, mismatch: int, gap: int,
                        wtype: int, trim: int, p: int = 16, s: int = 16,
-                       a: int = 8):
+                       a: int = 8, stats=None):
     """The kernel's function in plain PyTorch, same inputs and outputs
-    as ``poa_full``.  The graph bookkeeping runs in Python; every DP
-    row is a vector over the band on the inputs' device."""
+    as ``poa_full`` (mout[5:8] stay 0).  The graph bookkeeping runs in
+    Python; every DP row is a vector over the band on the inputs'
+    device.  ``stats`` [B, 3], when given, receives the counts the
+    kernel reports for its shared-memory paths."""
     dev = seqs.device
     b = int(seqs.shape[0])
     seqs_h = seqs.cpu().numpy()
@@ -193,10 +288,15 @@ def poa_full_reference(seqs, wts, meta, nlay, bblen, *, v: int, lp: int,
     params = dict(v=v, lp=lp, wb=wb, match=match, mismatch=mismatch,
                   gap=gap, wtype=wtype, trim=trim, p=p, s=s, a=a)
     for i in range(b):
+        st = {} if stats is not None else None
         out, mo = _window_reference(
             seqs_h[i], wts_h[i], meta_h[i], int(nlay_h[i]),
-            int(bblen_h[i]), rows[i], **params)
+            int(bblen_h[i]), rows[i], **params, stats=st)
         mout[i] = mo
+        if st is not None:
+            stats[i] = torch.tensor(
+                [st["ring_hits"], st["ring_misses"], st["pred_overflow"]],
+                dtype=torch.int32)
         if out:
             cons[i, :len(out)] = torch.tensor(out, dtype=torch.int32,
                                               device=dev)
@@ -205,8 +305,15 @@ def poa_full_reference(seqs, wts, meta, nlay, bblen, *, v: int, lp: int,
 
 def _window_reference(seq_rows, wt_rows, meta, nlay: int, bblen: int,
                       rows_dev, *, v, lp, wb, match, mismatch, gap,
-                      wtype, trim, p, s, a) -> Tuple[List[int], list]:
+                      wtype, trim, p, s, a,
+                      stats=None) -> Tuple[List[int], list]:
+    """One window.  ``stats``, a dict when given, receives the
+    kernel's shared-memory path counts: ``ring_hits`` / ``ring_misses``
+    (pred rows fewer / at least RING_ROWS ranks older than the row
+    being computed) and ``pred_overflow`` (pred slots >= PRED_MIRROR
+    the DP walk read)."""
     dev = rows_dev.device
+    ring_hits = ring_misses = pred_overflow = 0
     pkr = path_radix(lp)
     tape = v + lp
     cols = torch.arange(wb, dtype=torch.int32, device=dev)
@@ -322,6 +429,7 @@ def _window_reference(seq_rows, wt_rows, meta, nlay: int, bblen: int,
 
         # 1+2) walk the topological list; banded DP row per subset node
         sinks = []          # (node, score tensor) in walk order
+        visit = {}          # node -> rank in this layer's walk
         nvis = 0
         node = head
         while node >= 0:
@@ -337,6 +445,7 @@ def _window_reference(seq_rows, wt_rows, meta, nlay: int, bblen: int,
                 acc = arg = None
                 nreal = 0
                 for t in range(pcnt[node]):
+                    pred_overflow += t >= PRED_MIRROR
                     pid = preds[node][t]
                     if pid < 0 or epoch[pid] != d:
                         continue
@@ -345,6 +454,10 @@ def _window_reference(seq_rows, wt_rows, meta, nlay: int, bblen: int,
                     if not 0 <= dq < N_SHIFT:
                         fail = FAIL_KCAP
                         continue
+                    if nvis - visit[pid] < RING_ROWS:
+                        ring_hits += 1
+                    else:
+                        ring_misses += 1
                     h = ring[pid] >> 6
                     if dq:
                         h = torch.cat((h[dq * Q:], neg_pad[dq]))[:wb]
@@ -374,6 +487,7 @@ def _window_reference(seq_rows, wt_rows, meta, nlay: int, bblen: int,
                                    torch.where(vmax == hr, arg + p, 2 * p))
                 ring[node] = hr.clamp(-CLIP, CLIP) * 64 + code
                 epoch[node], bq[node] = d, sq_r
+                visit[node] = nvis
                 if minsucc[node] > end_eff:
                     c_end = m - s_r
                     if c_end < wb:
@@ -465,6 +579,9 @@ def _window_reference(seq_rows, wt_rows, meta, nlay: int, bblen: int,
                 add_edge(prev, target, prev_w + w)
             prev, prev_w = target, w
 
+    if stats is not None:
+        stats.update(ring_hits=ring_hits, ring_misses=ring_misses,
+                     pred_overflow=pred_overflow)
     mo = [0] * 8
     mo[2], mo[3], mo[4] = fail, nodes, rank_steps
     if fail != 0:
