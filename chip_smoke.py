@@ -2,14 +2,17 @@
 """On-card smoke run of the PyTorch/CUDA port (racon_tpu_torch).
 
     python3 chip_smoke.py [--genome-len N] [--threads T] [--work DIR]
+                          [--only band]
 
 Needs one CUDA card.  Phases, one JSON line each:
 
 1. env          card name and power limit, torch and CUDA versions;
 2. build        nvcc builds every kernel from the checkout's sources,
                 all started together, with ptxas registers and spills
-                (a POA spill fails the run), and the POA kernel's
-                dynamic shared memory and resident blocks per pass;
+                (a missing report or a spill in any kernel fails the
+                run), the POA kernel's dynamic shared memory and
+                resident blocks per pass, and the band kernel's shared
+                memory and resident pairs at wb 2048 and 4096;
 3. dataset      simulates an E. coli-sized ONT set (4,641,652 bp,
                 30x, 8 kb reads, seed 7) and cuts a 120 kb region of
                 it whose windows and overlaps feed the checks below;
@@ -32,23 +35,33 @@ Needs one CUDA card.  Phases, one JSON line each:
                 the WFA kernel (emax 2048) and the banded kernel (wb
                 2048, proportional knots; wb 4096 on measured knots for
                 8 of them) against their plain versions, plus tiny
-                edge cases; WFA meta and tape[:n], band distance and,
-                below BIG, move count and moves must agree exactly, and
-                every certified WFA distance must be the native edit
-                distance;
+                edge cases and the constructed pairs of
+                tools/band_pairs.py (forced band steps); WFA meta and
+                tape[:n], band distance and, below BIG, move count and
+                moves must agree exactly, and every certified WFA
+                distance must be the native edit distance; the band
+                kernel's DP/traceback cycle split and its time at 1-8
+                warps per pair;
+   band_card    the band-only cell: the region's overlap pairs on
+                measured knots at wb 4096, replicated to 1,024 pairs in
+                one launch; ms, pairs/s, cells, bound, phase split and
+                the warps sweep; every replica must equal its original
+                and 8 originals the plain version;
 6. polish       the port's CLI (-m 5 -x -4 -g -8 -c 1
                 --cudaaligner-batches 1) on the whole set: all three
                 kernels launched, CPU fall-through <= 10% of the
                 device-eligible overlaps, POA rejects <= 10% of
                 eligible windows, polished distance to truth <= draft
-                distance / 10; with the POA kernel's summed phase
-                cycles and every kernel's main-path bound;
+                distance / 10; with the POA and band kernels' summed
+                phase cycles and every kernel's main-path bound;
 7. native_compare  200 region windows on the POA kernel and on the
                 native CPU engine: summed edit distance between the two;
 8. kernels      every ported kernel with its launches in phase 6.
 
 Then the card's line as nvidia-smi prints it and the result line.  Any
 failure raises and the script exits non-zero without a result line.
+``--only band`` runs phases 1-3, align_check and band_card, then exits
+0 without the result line (a few minutes: a trial of the band kernel).
 """
 
 from __future__ import annotations
@@ -362,6 +375,17 @@ def compare_band(kernel_out, plain_out) -> tuple:
     return bad, err
 
 
+def band_split(cycles) -> dict:
+    """Cycle sums and shares of the band kernel's phase counters: DP
+    rows and traceback (meta[:, 2:4] summed, or a [DP, traceback]
+    list)."""
+    if hasattr(cycles, "shape"):
+        cycles = cycles[:, 2:4].to("cpu").long().sum(0).tolist()
+    tot = max(1, sum(cycles))
+    return {name: {"cycles": int(c), "share": c / tot}
+            for name, c in zip(("dp", "traceback"), cycles)}
+
+
 def timed_pair(kernel, plain, reps: int = 5) -> tuple:
     """(kernel outputs, plain outputs, kernel ms as the median of
     ``reps`` CUDA-event timings after one warm call, plain ms of one
@@ -402,6 +426,8 @@ def align_check(region, dev, cpu) -> dict:
     """Phase 5: the align kernels against their plain versions."""
     from racon_tpu_torch.cuda import align_band as ab
     from racon_tpu_torch.cuda import align_wfa as aw
+    from racon_tpu_torch.cuda import build
+    from racon_tpu_torch.tools.band_pairs import band_pairs
 
     pairs = region_pairs(region, 32, aw.MAX_DIM)
     if len(pairs) < 32:
@@ -441,7 +467,12 @@ def align_check(region, dev, cpu) -> dict:
     res["band"] = {"wb": wb, "mismatches": bbad, "max_abs_err": berr,
                    "in_band": int((bp[1][:, 0] < ab.BIG).sum()),
                    "cells": bcells, "kernel_ms": bms_k, "plain_ms": bplain,
-                   "bound_ms": bbound, "bound_by": bby, "library_ms": None}
+                   "bound_ms": bbound, "bound_by": bby, "library_ms": None,
+                   "phases": band_split(bk[1]),
+                   "warps_per_pair": build.load("align_band")
+                   .align_band_warps(len(qs), wb),
+                   "warps_sweep_ms": warps_sweep(bargs, wb),
+                   "dp_cycles_per_row": dp_cycles_per_row(bk[1], bargs[2])}
     # banded, wb 4096 on measured knots for 8 pairs
     sub = slice(0, 8)
     mk = [ab.estimate_center_knots(q, t, lq)
@@ -463,11 +494,14 @@ def align_check(region, dev, cpu) -> dict:
     tkn = [ab.proportional_knots(len(q), len(t), 512)
            for q, t in zip(tq, tt)]
     tkn[-1] = tkn[-1] * 0
-    tbargs = align_inputs(tq, tt, 512, dev, tkn)
+    # the constructed pairs of tools/band_pairs.py: forced band steps
+    _, bq, bt, bk = band_pairs(512, 256, seed=5)
+    tbargs = align_inputs(tq + bq, tt + bt, 512, dev, tkn + bk)
     tb = ab.band_align(*tbargs, wb=256)
     tbbad, tberr = compare_band(tb, ab.band_align_reference(*tbargs,
                                                              wb=256))
-    res["tiny"] = {"pairs": len(tq), "wfa_mismatches": tbad,
+    res["tiny"] = {"pairs": len(tq), "band_pairs": len(tq) + len(bq),
+                   "wfa_mismatches": tbad,
                    "wfa_max_abs_err": terr,
                    "wfa_rejected": sum(d > 128 for d in tdist),
                    "band_mismatches": tbbad, "band_max_abs_err": tberr,
@@ -476,6 +510,96 @@ def align_check(region, dev, cpu) -> dict:
     res["mismatches"] = bad + bbad + mbad + tbad + tbbad
     res["max_abs_err"] = max(err, berr, merr, terr, tberr)
     return res
+
+
+def band_card(region, dev, wb: int = 4096, n_pairs: int = 1024,
+              plain_checked: int = 8) -> dict:
+    """The band-only cell: the region's overlap pairs on measured-center
+    knots at ``wb``, replicated to ``n_pairs`` in one launch; median of
+    5 CUDA-event runs.  Every replica must equal its original's kernel
+    output, and the first ``plain_checked`` originals the plain
+    version."""
+    import numpy as np
+    import torch
+    from racon_tpu_torch.cuda import align_band as ab
+    from racon_tpu_torch.cuda import build
+
+    pairs = region_pairs(region, n_pairs, 16384)
+    qs, ts = [p[0] for p in pairs], [p[1] for p in pairs]
+    lq = (max(max(map(len, qs)), max(map(len, ts))) + 127) // 128 * 128
+    knots = [ab.estimate_center_knots(q, t, lq) for q, t in zip(qs, ts)]
+    n = len(pairs)
+    idx = [k % n for k in range(n_pairs)]
+    oargs = align_inputs(qs, ts, lq, dev, knots)
+    otape, ometa = ab.band_align(*oargs, wb=wb)
+    args = align_inputs([qs[k] for k in idx], [ts[k] for k in idx], lq, dev,
+                        [knots[k] for k in idx])
+    tape, meta = ab.band_align(*args, wb=wb)
+    torch.cuda.synchronize()
+    ms = statistics.median(cuda_ms(lambda: ab.band_align(*args, wb=wb), 5))
+    om, km = ometa.cpu().numpy(), meta.cpu().numpy()
+    omv = ab.unpack_moves(otape.cpu().numpy())
+    kmv = ab.unpack_moves(tape.cpu().numpy())
+    bad = 0
+    for r, k in enumerate(idx):
+        length = int(om[k, 1])
+        bad += not ((km[r, :2] == om[k, :2]).all()
+                    and (kmv[r, :length] == omv[k, :length]).all())
+    sub = slice(0, min(plain_checked, n))
+    pargs = align_inputs(qs[sub], ts[sub], lq, dev, knots[sub])
+    pbad, perr = compare_band(ab.band_align(*pargs, wb=wb),
+                              ab.band_align_reference(*pargs, wb=wb))
+    cells = sum(len(qs[k]) for k in idx) * wb
+    bms, by = bound(nbytes(*args), nbytes(tape, meta),
+                    cells * OPS_PER_BAND_CELL)
+    return {"wb": wb, "lq": lq, "originals": n, "pairs": n_pairs,
+            "warps_per_pair": build.load("align_band").align_band_warps(
+                n_pairs, wb),
+            "warps_sweep_ms": warps_sweep(args, wb),
+            "dp_cycles_per_row": dp_cycles_per_row(meta, args[2]),
+            "in_band": int((om[:, 0] < ab.BIG).sum()),
+            "replica_mismatches": bad, "plain_checked": sub.stop,
+            "plain_mismatches": pbad, "max_abs_err": perr,
+            "mismatches": bad + pbad, "cells": cells, "kernel_ms": ms,
+            "pairs_per_s": n_pairs / (ms / 1e3), "bound_ms": bms,
+            "bound_by": by, "share_of_bound": bms / ms,
+            "rows_p50_max": [int(x) for x in np.percentile(
+                [len(q) for q in qs], [50, 100])],
+            "phases": band_split(meta)}
+
+
+def warps_sweep(args, wb: int) -> dict:
+    """Median CUDA-event ms of the band kernel at each legal number of
+    warps per pair (outputs held equal to the kernel's own choice)."""
+    import torch
+    from racon_tpu_torch.cuda import align_band as ab
+
+    ref = ab.band_align(*args, wb=wb)
+    out = {}
+    nw = 1
+    while nw <= 8 and wb % (256 * nw) == 0:
+        got = ab.band_align(*args, wb=wb, warps=nw)
+        if not (torch.equal(got[0], ref[0])
+                and torch.equal(got[1][:, :2], ref[1][:, :2])):
+            raise RuntimeError(f"band kernel at {nw} warps per pair "
+                               "differs from its default launch")
+        out[nw] = statistics.median(cuda_ms(
+            lambda: ab.band_align(*args, wb=wb, warps=nw), 3))
+        nw *= 2
+    return out
+
+
+def dp_cycles_per_row(meta, ql) -> dict:
+    """DP cycles per query row of each pair (meta[:, 2] / ql): p50, and
+    the longest pair's."""
+    import numpy as np
+    cyc = meta[:, 2].cpu().numpy().astype(np.float64)
+    rows = ql.cpu().numpy().astype(np.float64)
+    ok = rows > 0
+    longest = int(np.argmax(rows))
+    return {"p50": float(np.median(cyc[ok] / rows[ok])),
+            "longest_pair": float(cyc[longest] / rows[longest]),
+            "longest_rows": int(rows[longest])}
 
 
 def poa_resources(dev, sms: int) -> dict:
@@ -491,6 +615,28 @@ def poa_resources(dev, sms: int) -> dict:
         out[name] = {"graph_nodes": nodes,
                      "dynamic_smem_bytes": pf.smem_bytes(nodes, 1024, wb),
                      "resident_blocks": slots, "blocks_per_sm": slots / sms}
+    return out
+
+
+def band_resources(dev, sms: int, ptxas: str) -> dict:
+    """The band kernel's registers (ptxas, per instantiation), and its
+    shared memory and resident pairs at the main path's rungs (lt
+    16,384; one warp per pair)."""
+    from racon_tpu_torch.cuda import align_band as ab
+    from racon_tpu_torch.cuda import build
+
+    out = {"threads_per_pair": 32, "registers": [
+        int(n) for n in re.findall(r"Used (\d+) registers", ptxas)]}
+    lib = build.load("align_band")
+    for wb in (2048, 4096):
+        slots = ab.resident_slots(dev, 16384, wb)
+        smem = ab.smem_bytes(16384, wb)
+        if smem != lib.align_band_smem(16384, wb):
+            raise RuntimeError("align_band.smem_bytes disagrees with the "
+                               "kernel's layout")
+        out[f"wb{wb}"] = {"smem_bytes_per_pair": smem,
+                          "resident_pairs": slots,
+                          "pairs_per_sm": slots / sms}
     return out
 
 
@@ -700,10 +846,38 @@ def deep_windows(work: str, threads: int, engine) -> list:
     return wins
 
 
+def band_phases(region, dev, cpu) -> dict:
+    """Phases 5 and 6: align_check and band_card; returns the
+    align_check dict."""
+    acheck = align_check(region, dev, cpu)
+    emit("align_check", **acheck)
+    if acheck["mismatches"]:
+        raise RuntimeError(f"an align kernel disagrees with its plain "
+                           f"version on {acheck['mismatches']} pair(s)")
+    if acheck["native_mismatches"]:
+        raise RuntimeError(f"{acheck['native_mismatches']} certified WFA "
+                           "distance(s) differ from the native engine")
+    if acheck["tiny"]["band_out_of_band"] < 1 or \
+            acheck["tiny"]["wfa_rejected"] < 3:
+        raise RuntimeError("a forced align reject was not rejected")
+    card = band_card(region, dev)
+    emit("band_card", **card)
+    if card["mismatches"]:
+        raise RuntimeError(f"band_card: {card['replica_mismatches']} "
+                           "replica(s) differ from their originals, "
+                           f"{card['plain_mismatches']} original(s) from "
+                           "the plain version")
+    return acheck
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--genome-len", type=int, default=4_641_652)
     ap.add_argument("--threads", type=int, default=os.cpu_count() or 8)
+    ap.add_argument("--only", choices=["band"], default=None,
+                    help="band: env, build, dataset, align_check and "
+                    "band_card only, then exit 0 without the result line "
+                    "(a trial run of the band kernel)")
     ap.add_argument("--work", default=None,
                     help="dataset directory (default: tmp/chip_smoke in "
                     "the checkout, removed at the end)")
@@ -736,18 +910,21 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     log = build.build_all()
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    spills = [int(n) for l in log["poa_full"]["ptxas"].splitlines()
-              for n in re.findall(r"(\d+) bytes spill", l)]
     emit("build", seconds=round(time.perf_counter() - t0, 3),
          kernels={n: {"seconds": round(r["seconds"], 3),
                       "ptxas": [l for l in r["ptxas"].splitlines()
                                 if "registers" in l or "spill" in l]}
                   for n, r in log.items()},
-         poa_full_stock=poa_resources(dev, sms))
-    if "registers" not in log["poa_full"]["ptxas"]:
-        raise RuntimeError("no ptxas report for poa_full")
-    if any(spills):
-        raise RuntimeError(f"poa_full spills registers: {spills} bytes")
+         poa_full_stock=poa_resources(dev, sms),
+         align_band_resources=band_resources(dev, sms,
+                                             log["align_band"]["ptxas"]))
+    for name, rec in log.items():
+        if "registers" not in rec["ptxas"]:
+            raise RuntimeError(f"no ptxas report for {name}")
+        spills = [int(n) for n in re.findall(r"(\d+) bytes spill",
+                                             rec["ptxas"])]
+        if any(spills):
+            raise RuntimeError(f"{name} spills registers: {spills} bytes")
     cpu.get_library()
 
     # ---- dataset ------------------------------------------------------
@@ -766,6 +943,14 @@ def main(argv=None) -> int:
     pol.close()
     emit("dataset", genome_len=args.genome_len, simulate_s=round(t_sim, 3),
          region_windows=len(region_windows))
+
+    if args.only == "band":
+        band_phases(region, dev, cpu)
+        emit("partial", only=args.only,
+             run_s=round(time.perf_counter() - t_run, 3))
+        if args.work is None:
+            shutil.rmtree(work)
+        return 0
 
     # ---- kernel_check ---------------------------------------------------
     stock = dict(v=2048, lp=1024, wb=pf.band_width(1024), match=5,
@@ -791,18 +976,8 @@ def main(argv=None) -> int:
                            "batch differ from their originals or from the "
                            "plain version")
 
-    # ---- align_check ----------------------------------------------------
-    acheck = align_check(region, dev, cpu)
-    emit("align_check", **acheck)
-    if acheck["mismatches"]:
-        raise RuntimeError(f"an align kernel disagrees with its plain "
-                           f"version on {acheck['mismatches']} pair(s)")
-    if acheck["native_mismatches"]:
-        raise RuntimeError(f"{acheck['native_mismatches']} certified WFA "
-                           "distance(s) differ from the native engine")
-    if acheck["tiny"]["band_out_of_band"] < 1 or \
-            acheck["tiny"]["wfa_rejected"] < 3:
-        raise RuntimeError("a forced align reject was not rejected")
+    # ---- align_check, band_card ----------------------------------------
+    acheck = band_phases(region, dev, cpu)
 
     # ---- polish (the main path, counted) --------------------------------
     argv_polish = ["-t", str(args.threads), "-m", "5", "-x", "-4", "-g",
@@ -848,6 +1023,7 @@ def main(argv=None) -> int:
          align_dispatches=polisher.align_dispatches,
          align_kernel_ms={k: round(v, 3) for k, v in
                           polisher.align_kernel_ms.items()},
+         align_band_phases=band_split(polisher.align_band_cycles),
          draft_distance=d_draft, polished_distance=d_pol)
     for name, n in launches.items():
         if n <= 0:

@@ -65,7 +65,9 @@ def band_dispatch(queries, targets, lq: int, lt: int, wb: int, device,
     """Launch one banded chunk; ``centers`` holds one knot array per
     pair (``estimate_center_knots``) or None for the proportional
     diagonal.  ``collect()`` gives (moves [n, 16 * words] uint8, move
-    counts, distances, ``BIG`` out of band)."""
+    counts, distances, ``BIG`` out of band); it also sets
+    ``collect.phase_cycles``, the kernel's summed [DP, traceback]
+    cycles (``meta[:, 2:4]``, 0 on the CPU)."""
     n = len(queries)
     ctr = np.stack([
         centers[k] if centers is not None and centers[k] is not None
@@ -79,6 +81,7 @@ def band_dispatch(queries, targets, lq: int, lt: int, wb: int, device,
 
     def collect():
         mt = meta.cpu().numpy()
+        collect.phase_cycles = mt[:, 2:4].astype(np.int64).sum(0).tolist()
         return ab.unpack_moves(tape.cpu().numpy()), mt[:, 1], mt[:, 0]
 
     collect.kernel_ms = ms

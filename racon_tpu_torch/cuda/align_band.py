@@ -23,7 +23,8 @@ Inputs: ``q [B, lq]`` and ``t [B, lt]`` uint8 codes
 [B, n_ctr(lq)]`` int32 knots.  Outputs: ``tape [B, tape_rows, 128]``
 int32 holding 2-bit moves (diagonal 0 / up 1 / left 2), 16 per word,
 in traceback order, and ``meta [B, 8]`` int32: 0 the distance (``BIG``
-out of band), 1 the move count.
+out of band), 1 the move count, 2 and 3 the kernel's clock64() cycles
+of the pair's DP rows and traceback (0 from the plain version).
 
 ``band_align`` launches the kernel (``csrc/align_band.cu``) for CUDA
 tensors and runs ``band_align_reference`` for CPU tensors.
@@ -41,7 +42,7 @@ from racon_tpu_torch.cuda import aligner as al
 BIG = 1 << 20
 MV_DIAG, MV_UP, MV_LEFT = 0, 1, 2
 Q = 128                      # band-start quantum
-COLS = 8                     # band columns per kernel thread
+SYNC_WORDS = 34              # kernel's per-block exchange words (kSync)
 
 # center-table knot spacing (rows)
 CTR_BLK = 1024
@@ -72,8 +73,32 @@ def band_per_pair_bytes(lq: int, lt: int, wb: int) -> int:
 
 
 def fits(lq: int, lt: int, wb: int) -> bool:
-    """One thread per 8 band columns in whole warps, at most 1024."""
+    """One warp per pair: wb / 32 columns per lane in whole units of 8,
+    at most 8192 columns."""
     return wb % 256 == 0 and 256 <= wb <= 8192 and lq > 0 and lt > 0
+
+
+def smem_bytes(lt: int, wb: int) -> int:
+    """Dynamic shared memory of one pair in the one-warp kernel: the row
+    ring (wb + 256 int32 cells and a 16-byte pad per run of the largest
+    power of two dividing wb / 32), the target's match-bit table (4 rows
+    of (max(lt, wb) + 128) / 32 + 2 words), the exchange words and one
+    row of match bits (wb / 32 + 2 words); mirrors ``layout`` in
+    ``csrc/align_band.cu``."""
+    cols = wb // 32
+    run = cols & -cols
+    ring = wb + 2 * Q
+    return 4 * (ring + 4 * (ring // run)
+                + 4 * ((max(lt, wb) + Q) // 32 + 2) + SYNC_WORDS
+                + wb // 32 + 2)
+
+
+def resident_slots(device, lt: int, wb: int) -> int:
+    """Pairs the kernel holds at once on ``device`` (one warp each)."""
+    from racon_tpu_torch.cuda import build
+
+    with torch.cuda.device(device):
+        return int(build.load("align_band").align_band_slots(lt, wb))
 
 
 def proportional_knots(ql: int, tl: int, lq: int) -> np.ndarray:
@@ -208,11 +233,15 @@ def check_inputs(q, t, ql, tl, ctr, wb: int) -> Tuple[int, int, int]:
     return b, lq, lt
 
 
-def band_align(q, t, ql, tl, ctr, *, wb: int):
+def band_align(q, t, ql, tl, ctr, *, wb: int, warps: int = 0):
     """(tape, meta) of every pair, on the inputs' device.  CUDA tensors
-    launch the kernel; CPU tensors run the plain version."""
+    launch the kernel with ``warps`` warps per pair (0: the kernel's
+    choice from the batch size; each thread takes wb / (32 x warps)
+    columns, a multiple of 8); CPU tensors run the plain version."""
     global LAUNCHES
     b, lq, lt = check_inputs(q, t, ql, tl, ctr, wb)
+    if warps not in (0, 1, 2, 4, 8) or (warps and wb % (256 * warps)):
+        raise ValueError(f"warps={warps} per pair does not fit wb={wb}")
     if q.device.type == "cpu":
         return band_align_reference(q, t, ql, tl, ctr, wb=wb)
     if q.device.type != "cuda":
@@ -226,14 +255,17 @@ def band_align(q, t, ql, tl, ctr, *, wb: int):
     meta = torch.zeros((b, 8), dtype=torch.int32, device=dev)
     if b == 0:
         return tape, meta
-    # 2-bit directions of every band cell, 8 columns per uint16
+    # 2-bit directions of every band cell, 8 columns per uint16, and the
+    # pair queue of the persistent blocks
     dirs = torch.empty((b, lq * wb // 8), dtype=torch.int16, device=dev)
+    queue = torch.zeros(1, dtype=torch.int32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         err = lib.align_band_launch(
             q.data_ptr(), t.data_ptr(), ql.data_ptr(), tl.data_ptr(),
             ctr.data_ptr(), dirs.data_ptr(), tape.data_ptr(),
-            meta.data_ptr(), b, lq, lt, wb, n_ctr(lq), rows * 128, stream)
+            meta.data_ptr(), queue.data_ptr(), b, lq, lt, wb, n_ctr(lq),
+            rows * 128, warps, stream)
     if err != 0:
         raise RuntimeError(f"align_band kernel launch failed: "
                            f"{build.error_string('align_band', err)} "

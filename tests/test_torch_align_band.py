@@ -8,7 +8,9 @@ the Pallas kernel runs in interpret mode.  Both are integer programs:
 distances must be equal for every pair, and move counts and moves[:len]
 wherever the distance is below BIG, tolerance 0.  Interpret mode is
 costly (~10 s for the proportional call, ~40 s for the measured-center
-call at lq 2048 / wb 1024), so each rides one module-scoped call.
+call at lq 2048 / wb 1024), so each rides one module-scoped call; the
+constructed pairs of ``tools/band_pairs.py`` (forced band steps and
+edge cases, on hand-made knots) ride the first.
 """
 
 import numpy as np
@@ -18,11 +20,14 @@ import torch
 from racon_tpu_torch.cuda import align_band as ab
 from racon_tpu_torch.cuda import aligner as al
 from racon_tpu_torch.ops import cpu
-from tests.test_torch_align_wfa import mutate, seq
+from racon_tpu_torch.tools import band_pairs
+from test_torch_align_wfa import mutate, seq
 
 LQ, WB = 512, 256
 CASES = ["div05", "div15", "div25", "del60", "n_bases", "len_gap",
          "empty_query", "drift"]
+# constructed pairs of tools/band_pairs.py (hand-made knots), after CASES
+BP = ["bp_" + name for name in band_pairs.CASES]
 
 
 def make_pairs(rng):
@@ -77,27 +82,33 @@ def _interp(ap):
     return mp
 
 
+def all_pairs():
+    """CASES on proportional knots, then the constructed pairs on their
+    hand-made knots: (queries, targets, knots)."""
+    qs, ts = make_pairs(np.random.default_rng(5))
+    _, bq, bt, bk = band_pairs.band_pairs(LQ, WB, seed=5)
+    return qs + bq, ts + bt, prop_knots(qs, ts, LQ) + bk
+
+
 @pytest.fixture(scope="module")
 def runs():
-    """Proportional knots: pairs, Pallas (moves, lens, dists), port
-    (moves, meta)."""
+    """Pairs, Pallas (moves, lens, dists), port (moves, meta)."""
     from racon_tpu.tpu import align_pallas as ap
 
-    qs, ts = make_pairs(np.random.default_rng(5))
+    qs, ts, knots = all_pairs()
     mp = _interp(ap)
     try:
-        jm, jl, jd = ap.align_batch(qs, ts, LQ, LQ, WB)
+        jm, jl, jd = ap.align_batch(qs, ts, LQ, LQ, WB, centers=knots)
     finally:
         mp.undo()
-    tape, meta = ab.band_align(*encode(qs, ts, LQ, LQ,
-                                       prop_knots(qs, ts, LQ)), wb=WB)
+    tape, meta = ab.band_align(*encode(qs, ts, LQ, LQ, knots), wb=WB)
     return qs, ts, (jm, jl, jd), (ab.unpack_moves(tape.numpy()),
                                   meta.numpy())
 
 
-@pytest.mark.parametrize("case", CASES)
+@pytest.mark.parametrize("case", CASES + BP)
 def test_plain_equals_pallas(runs, case):
-    k = CASES.index(case)
+    k = (CASES + BP).index(case)
     _, _, (jm, jl, jd), (moves, meta) = runs
     assert int(meta[k, 0]) == int(jd[k])
     if int(jd[k]) < ab.BIG:
@@ -234,7 +245,8 @@ def test_pair_alone_equals_pair_in_batch(runs):
             moves[k, :n].tolist()
 
 
-@pytest.mark.parametrize("bad", ["dtype", "knots", "contiguous", "fits"])
+@pytest.mark.parametrize("bad", ["dtype", "knots", "contiguous", "fits",
+                                 "warps"])
 def test_wrapper_rejects_bad_inputs(bad):
     qs, ts = make_pairs(np.random.default_rng(1))
     args = list(encode(qs[:2], ts[:2], LQ, LQ, prop_knots(qs[:2], ts[:2],
@@ -246,25 +258,81 @@ def test_wrapper_rejects_bad_inputs(bad):
         args[4] = args[4][:, :-1]
     elif bad == "contiguous":
         args[1] = torch.cat([args[1], args[1]], 1)[:, ::2]
-    else:
+    elif bad == "fits":
         wb = 384
     with pytest.raises(ValueError):
-        ab.band_align(*args, wb=wb)
+        # 2 warps at wb 256 would leave each thread 4 columns
+        ab.band_align(*args, wb=wb, warps=2 if bad == "warps" else 0)
 
 
 @pytest.mark.cuda
-def test_kernel_matches_plain_on_card():
+@pytest.mark.parametrize("lq,wb", [(LQ, WB), (8192, 4096), (12288, 8192)])
+def test_kernel_matches_plain_on_card(lq, wb):
     """The CUDA kernel against its plain version on the card (needs a
-    GPU and nvcc; run with ``pytest -m cuda`` on the card)."""
+    GPU and nvcc; run with ``pytest -m cuda`` on the card): the CPU
+    cases and the constructed pairs at the tests' lq 512 / wb 256, and
+    the constructed pairs alone at lq 8192 / wb 4096 and at the last
+    rung's wb 8192."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    qs, ts = make_pairs(np.random.default_rng(5))
-    args = encode(qs, ts, LQ, LQ, prop_knots(qs, ts, LQ), "cuda")
-    kt, km = ab.band_align(*args, wb=WB)
-    pt, pm = ab.band_align_reference(*args, wb=WB)
+    if lq == LQ:
+        qs, ts, knots = all_pairs()
+    else:
+        _, qs, ts, knots = band_pairs.band_pairs(lq, wb, seed=5)
+    args = encode(qs, ts, lq, lq, knots, "cuda")
+    kt, km = ab.band_align(*args, wb=wb)
+    pt, pm = ab.band_align_reference(*args, wb=wb)
     torch.cuda.synchronize()
     assert torch.equal(km[:, :2], pm[:, :2])
+    assert bool((km[:, 2] > 0).all())          # DP cycles, every pair
     kmv, pmv = (ab.unpack_moves(x.cpu().numpy()) for x in (kt, pt))
     for k in range(len(qs)):
         n = int(pm[k, 1])
         assert np.array_equal(kmv[k, :n], pmv[k, :n])
+
+
+def _band_steps(q, t, knots, lq, wb):
+    """Band starts (in quanta) of rows 0..ql, as the kernel places them."""
+    ql, tl = len(q), len(t)
+    smax = (max(tl + 1 - wb, 0) + ab.Q - 1) // ab.Q
+    ctr = torch.from_numpy(np.asarray(knots, np.int32)[None, :])
+    return [int(ab._band_start(ctr, torch.tensor([i], dtype=torch.int32),
+                               wb, torch.tensor([smax]))[0])
+            for i in range(ql + 1)]
+
+
+@pytest.mark.parametrize("lq,wb", [(LQ, WB), (8192, 4096)])
+@pytest.mark.parametrize("case", band_pairs.CASES)
+def test_band_pairs_force_their_paths(case, lq, wb):
+    """Each constructed pair takes the band path its name promises."""
+    names, qs, ts, knots = band_pairs.band_pairs(lq, wb, seed=5)
+    k = names.index(case)
+    q, t, kn = qs[k], ts[k], knots[k]
+    assert len(q) <= lq and len(t) <= lq
+    st = _band_steps(q, t, kn, lq, wb)
+    steps = set(np.diff(st).tolist())
+    c_end = len(t) - st[-1] * ab.Q
+    if case.startswith("adv"):
+        assert int(case[3]) in steps and steps <= {0, 1, 2, 3}
+    elif case == "backward":
+        assert min(steps) < 0
+    elif case == "end_out_of_band":
+        assert c_end >= wb
+    elif case == "short_target":
+        assert len(t) < wb and 0 <= c_end < wb
+    elif case == "empty_query":
+        assert len(q) == 0 and len(t) > 0
+    else:
+        # the traceback reaches column 0 above row 0 and goes up there
+        args = encode([q], [t], lq, lq, [kn])
+        tape, meta = ab.band_align(*args, wb=wb)
+        n = int(meta[0, 1])
+        assert int(meta[0, 0]) < ab.BIG
+        mv = ab.unpack_moves(tape.numpy())[0, :n]
+        i, j, up_at_zero = len(q), len(t), 0
+        for m in mv:
+            if j == 0 and i > 0:
+                up_at_zero += int(m) == ab.MV_UP
+            i -= int(m) != ab.MV_LEFT
+            j -= int(m) != ab.MV_UP
+        assert up_at_zero > 0 and i == 0 and j == 0
