@@ -2,7 +2,7 @@
 """On-card smoke run of the PyTorch/CUDA port (racon_tpu_torch).
 
     python3 chip_smoke.py [--genome-len N] [--threads T] [--work DIR]
-                          [--only band]
+                          [--only band|wfa]
 
 Needs one CUDA card.  Phases, one JSON line each:
 
@@ -36,32 +36,40 @@ Needs one CUDA card.  Phases, one JSON line each:
                 2048, proportional knots; wb 4096 on measured knots for
                 8 of them) against their plain versions, plus tiny
                 edge cases and the constructed pairs of
+                tools/wfa_pairs.py (WFA edge paths, emax 128) and
                 tools/band_pairs.py (forced band steps); WFA meta and
                 tape[:n], band distance and, below BIG, move count and
                 moves must agree exactly, and every certified WFA
-                distance must be the native edit distance; the band
-                kernel's DP/traceback cycle split and its time at 1-8
-                warps per pair;
+                distance must be the native edit distance; both
+                kernels' two-phase cycle splits and the band kernel's
+                time at 1-8 warps per pair;
    band_card    the band-only cell: the region's overlap pairs on
                 measured knots at wb 4096, replicated to 1,024 pairs in
                 one launch; ms, pairs/s, cells, bound, phase split and
                 the warps sweep; every replica must equal its original
                 and 8 originals the plain version;
+   wfa_card     the WFA-only cell: the region's overlap pairs at emax
+                2048, replicated to 1,024 pairs (one main-path chunk)
+                in one launch; ms, pairs/s, wavefront cells, bound, the
+                history-bytes floor and the step/traceback split; every
+                replica must equal its original and 8 originals the
+                plain version;
 6. polish       the port's CLI (-m 5 -x -4 -g -8 -c 1
                 --cudaaligner-batches 1) on the whole set: all three
                 kernels launched, CPU fall-through <= 10% of the
                 device-eligible overlaps, POA rejects <= 10% of
                 eligible windows, polished distance to truth <= draft
-                distance / 10; with the POA and band kernels' summed
-                phase cycles and every kernel's main-path bound;
+                distance / 10; with every kernel's summed phase cycles
+                and main-path bound;
 7. native_compare  200 region windows on the POA kernel and on the
                 native CPU engine: summed edit distance between the two;
 8. kernels      every ported kernel with its launches in phase 6.
 
 Then the card's line as nvidia-smi prints it and the result line.  Any
 failure raises and the script exits non-zero without a result line.
-``--only band`` runs phases 1-3, align_check and band_card, then exits
-0 without the result line (a few minutes: a trial of the band kernel).
+``--only band`` (``--only wfa``) runs phases 1-3, align_check and
+band_card (wfa_card), then exits 0 without the result line (a few
+minutes: a trial of one align kernel).
 """
 
 from __future__ import annotations
@@ -375,15 +383,20 @@ def compare_band(kernel_out, plain_out) -> tuple:
     return bad, err
 
 
-def band_split(cycles) -> dict:
-    """Cycle sums and shares of the band kernel's phase counters: DP
-    rows and traceback (meta[:, 2:4] summed, or a [DP, traceback]
-    list)."""
+def cycle_split(cycles, names=("dp", "traceback")) -> dict:
+    """Cycle sums and shares of an align kernel's two phase counters
+    (meta[:, 2:4] summed, or a two-entry list): the band kernel's DP
+    rows and traceback, or the WFA kernel's wavefront steps and
+    traceback."""
     if hasattr(cycles, "shape"):
         cycles = cycles[:, 2:4].to("cpu").long().sum(0).tolist()
     tot = max(1, sum(cycles))
     return {name: {"cycles": int(c), "share": c / tot}
-            for name, c in zip(("dp", "traceback"), cycles)}
+            for name, c in zip(names, cycles)}
+
+
+def wfa_split(cycles) -> dict:
+    return cycle_split(cycles, ("steps", "traceback"))
 
 
 def timed_pair(kernel, plain, reps: int = 5) -> tuple:
@@ -428,6 +441,7 @@ def align_check(region, dev, cpu) -> dict:
     from racon_tpu_torch.cuda import align_wfa as aw
     from racon_tpu_torch.cuda import build
     from racon_tpu_torch.tools.band_pairs import band_pairs
+    from racon_tpu_torch.tools.wfa_pairs import wfa_pairs
 
     pairs = region_pairs(region, 32, aw.MAX_DIM)
     if len(pairs) < 32:
@@ -438,8 +452,9 @@ def align_check(region, dev, cpu) -> dict:
     # WFA, emax 2048
     emax = 2048
     args = align_inputs(qs, ts, lq, dev)
+    lmax = longest(qs, ts)
     wk, wp, ms, plain_ms = timed_pair(
-        lambda: aw.wfa_align(*args, emax=emax),
+        lambda: aw.wfa_align(*args, emax=emax, lmax=lmax),
         lambda: aw.wfa_align_reference(*args, emax=emax))
     bad, err = compare_wfa(wk, wp)
     dists = wp[1][:, 0].cpu().tolist()
@@ -451,7 +466,10 @@ def align_check(region, dev, cpu) -> dict:
                   "certified": sum(d <= emax for d in dists),
                   "native_mismatches": native_bad, "wavefront_cells": cells,
                   "kernel_ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
-                  "bound_by": by, "library_ms": None}
+                  "bound_by": by, "library_ms": None,
+                  "phases": wfa_split(wk[1]),
+                  "warps_per_pair": build.load("align_wfa")
+                  .align_wfa_warps(len(qs))}
     # banded, wb 2048 on proportional knots
     wb = 2048
     knots = [ab.proportional_knots(len(q), len(t), lq)
@@ -468,7 +486,7 @@ def align_check(region, dev, cpu) -> dict:
                    "in_band": int((bp[1][:, 0] < ab.BIG).sum()),
                    "cells": bcells, "kernel_ms": bms_k, "plain_ms": bplain,
                    "bound_ms": bbound, "bound_by": bby, "library_ms": None,
-                   "phases": band_split(bk[1]),
+                   "phases": cycle_split(bk[1]),
                    "warps_per_pair": build.load("align_band")
                    .align_band_warps(len(qs), wb),
                    "warps_sweep_ms": warps_sweep(bargs, wb),
@@ -482,15 +500,18 @@ def align_check(region, dev, cpu) -> dict:
                               ab.band_align_reference(*margs, wb=4096))
     res["band_measured"] = {"wb": 4096, "pairs": 8, "mismatches": mbad,
                             "max_abs_err": merr}
-    # tiny edge cases: WFA at emax 128, band at wb 256 (zero knots for
-    # the last pair put its end outside the band)
+    # tiny edge cases: WFA at emax 128 with the constructed pairs of
+    # tools/wfa_pairs.py, band at wb 256 (zero knots for the last pair
+    # put its end outside the band)
     tq, tt = tiny_pairs(random.Random(5))
-    targs = align_inputs(tq, tt, 512, dev)
-    tw = aw.wfa_align(*targs, emax=128)
+    _, wq, wt = wfa_pairs(512, 128, seed=5)
+    targs = align_inputs(tq + wq, tt + wt, 512, dev)
+    tw = aw.wfa_align(*targs, emax=128, lmax=longest(tq + wq, tt + wt))
     tbad, terr = compare_wfa(tw, aw.wfa_align_reference(*targs, emax=128))
     tdist = tw[1][:, 0].cpu().tolist()
     native_bad += sum(d != cpu.edit_distance(q, t)
-                      for q, t, d in zip(tq, tt, tdist) if d <= 128)
+                      for q, t, d in zip(tq + wq, tt + wt, tdist)
+                      if d <= 128)
     tkn = [ab.proportional_knots(len(q), len(t), 512)
            for q, t in zip(tq, tt)]
     tkn[-1] = tkn[-1] * 0
@@ -500,7 +521,8 @@ def align_check(region, dev, cpu) -> dict:
     tb = ab.band_align(*tbargs, wb=256)
     tbbad, tberr = compare_band(tb, ab.band_align_reference(*tbargs,
                                                              wb=256))
-    res["tiny"] = {"pairs": len(tq), "band_pairs": len(tq) + len(bq),
+    res["tiny"] = {"pairs": len(tq), "wfa_pairs": len(tq) + len(wq),
+                   "band_pairs": len(tq) + len(bq),
                    "wfa_mismatches": tbad,
                    "wfa_max_abs_err": terr,
                    "wfa_rejected": sum(d > 128 for d in tdist),
@@ -565,7 +587,82 @@ def band_card(region, dev, wb: int = 4096, n_pairs: int = 1024,
             "bound_by": by, "share_of_bound": bms / ms,
             "rows_p50_max": [int(x) for x in np.percentile(
                 [len(q) for q in qs], [50, 100])],
-            "phases": band_split(meta)}
+            "phases": cycle_split(meta)}
+
+
+def wfa_cells(meta, ql, tl, emax: int) -> int:
+    """Wavefront cells of a WFA launch: (min(d, emax) + 1)^2 per pair
+    that the kernel stepped (0 for an empty pair or |tl - ql| > emax)."""
+    cells = 0
+    for d, a, b in zip(meta[:, 0].tolist(), ql.tolist(), tl.tolist()):
+        if a > 0 and b > 0 and abs(b - a) <= emax:
+            cells += (min(d, emax) + 1) ** 2
+    return cells
+
+
+def wfa_card(region, dev, emax: int = 2048, n_pairs: int = 1024,
+             plain_checked: int = 8) -> dict:
+    """The WFA-only cell: the region's overlap pairs at ``emax``,
+    replicated to ``n_pairs`` (one main-path chunk) in one launch;
+    median of 5 CUDA-event runs.  Every replica must equal its
+    original's kernel output (meta[:, :2], tape[:n]), and the first
+    ``plain_checked`` originals the plain version."""
+    import numpy as np
+    import torch
+    from racon_tpu_torch.cuda import align_wfa as aw
+    from racon_tpu_torch.cuda import build
+
+    pairs = region_pairs(region, n_pairs, aw.MAX_DIM)
+    qs, ts = [p[0] for p in pairs], [p[1] for p in pairs]
+    lq = (max(max(map(len, qs)), max(map(len, ts))) + 127) // 128 * 128
+    n = len(pairs)
+    idx = [k % n for k in range(n_pairs)]
+    lmax = longest(qs, ts)
+    otape, ometa = aw.wfa_align(*align_inputs(qs, ts, lq, dev), emax=emax,
+                                lmax=lmax)
+    args = align_inputs([qs[k] for k in idx], [ts[k] for k in idx], lq,
+                        dev)
+    tape, meta = aw.wfa_align(*args, emax=emax, lmax=lmax)
+    torch.cuda.synchronize()
+    ms = statistics.median(cuda_ms(
+        lambda: aw.wfa_align(*args, emax=emax, lmax=lmax), 5))
+    om, km = ometa.cpu().numpy(), meta.cpu().numpy()
+    ot = otape.cpu().numpy().reshape(n, -1)
+    kt = tape.cpu().numpy().reshape(n_pairs, -1)
+    bad = 0
+    for r, k in enumerate(idx):
+        length = int(om[k, 1])
+        bad += not ((km[r, :2] == om[k, :2]).all()
+                    and (kt[r, :length] == ot[k, :length]).all())
+    sub = slice(0, min(plain_checked, n))
+    pargs = align_inputs(qs[sub], ts[sub], lq, dev)
+    pbad, perr = compare_wfa(aw.wfa_align(*pargs, emax=emax, lmax=lmax),
+                             aw.wfa_align_reference(*pargs, emax=emax))
+    cells = wfa_cells(km, args[2].cpu(), args[3].cpu(), emax)
+    bms, by = bound(nbytes(*args), nbytes(tape, meta),
+                    cells * OPS_PER_WFA_CELL)
+    dists = om[:, 0]
+    return {"emax": emax, "lq": lq, "lmax": lmax, "originals": n,
+            "pairs": n_pairs, "certified": int((dists <= emax).sum()),
+            "warps_per_pair": build.load("align_wfa").align_wfa_warps(
+                n_pairs),
+            "resident_pairs": aw.resident_slots(dev, lmax, emax, n_pairs),
+            "distance_p50_max": [int(x) for x in np.percentile(
+                dists[dists <= emax], [50, 100])],
+            "replica_mismatches": bad, "plain_checked": sub.stop,
+            "plain_mismatches": pbad, "max_abs_err": perr,
+            "mismatches": bad + pbad, "wavefront_cells": cells,
+            "kernel_ms": ms, "pairs_per_s": n_pairs / (ms / 1e3),
+            "bound_ms": bms, "bound_by": by, "share_of_bound": bms / ms,
+            "history_floor_ms": {
+                "int32": 1e3 * 4 * cells / HBM_BYTES_PER_S,
+                "int16": 1e3 * 2 * cells / HBM_BYTES_PER_S},
+            "phases": wfa_split(meta)}
+
+
+def longest(qs, ts) -> int:
+    """The longest sequence of a batch (the WFA kernel's ``lmax``)."""
+    return max(max(map(len, qs)), max(map(len, ts)), 1)
 
 
 def warps_sweep(args, wb: int) -> dict:
@@ -637,6 +734,29 @@ def band_resources(dev, sms: int, ptxas: str) -> dict:
         out[f"wb{wb}"] = {"smem_bytes_per_pair": smem,
                           "resident_pairs": slots,
                           "pairs_per_sm": slots / sms}
+    return out
+
+
+def wfa_resources(dev, sms: int, ptxas: str) -> dict:
+    """The WFA kernel's registers (ptxas), and its shared memory and
+    resident pairs at the main path's rungs for a chunk of 1,024 pairs
+    of up to 16,384 bases."""
+    from racon_tpu_torch.cuda import align_wfa as aw
+    from racon_tpu_torch.cuda import build
+
+    lib = build.load("align_wfa")
+    out = {"registers": [int(n) for n in
+                         re.findall(r"Used (\d+) registers", ptxas)],
+           "warps_per_pair": lib.align_wfa_warps(1024)}
+    for emax in (512, 1024, 2048):
+        smem = aw.smem_bytes(aw.MAX_DIM, emax)
+        if smem != lib.align_wfa_smem(aw.MAX_DIM, emax):
+            raise RuntimeError("align_wfa.smem_bytes disagrees with the "
+                               "kernel's layout")
+        slots = aw.resident_slots(dev, aw.MAX_DIM, emax, 1024)
+        out[f"emax{emax}"] = {"smem_bytes_per_pair": smem,
+                              "resident_pairs": slots,
+                              "pairs_per_sm": slots / sms}
     return out
 
 
@@ -846,9 +966,9 @@ def deep_windows(work: str, threads: int, engine) -> list:
     return wins
 
 
-def band_phases(region, dev, cpu) -> dict:
-    """Phases 5 and 6: align_check and band_card; returns the
-    align_check dict."""
+def align_phases(region, dev, cpu, only=None) -> dict:
+    """Phase 5: align_check, then band_card and wfa_card (one of them
+    with ``only``); returns the align_check dict."""
     acheck = align_check(region, dev, cpu)
     emit("align_check", **acheck)
     if acheck["mismatches"]:
@@ -858,15 +978,19 @@ def band_phases(region, dev, cpu) -> dict:
         raise RuntimeError(f"{acheck['native_mismatches']} certified WFA "
                            "distance(s) differ from the native engine")
     if acheck["tiny"]["band_out_of_band"] < 1 or \
-            acheck["tiny"]["wfa_rejected"] < 3:
+            acheck["tiny"]["wfa_rejected"] < 5:
         raise RuntimeError("a forced align reject was not rejected")
-    card = band_card(region, dev)
-    emit("band_card", **card)
-    if card["mismatches"]:
-        raise RuntimeError(f"band_card: {card['replica_mismatches']} "
-                           "replica(s) differ from their originals, "
-                           f"{card['plain_mismatches']} original(s) from "
-                           "the plain version")
+    cells = (("band_card", band_card), ("wfa_card", wfa_card))
+    for name, fn in cells:
+        if only is not None and name != f"{only}_card":
+            continue
+        card = fn(region, dev)
+        emit(name, **card)
+        if card["mismatches"]:
+            raise RuntimeError(f"{name}: {card['replica_mismatches']} "
+                               "replica(s) differ from their originals, "
+                               f"{card['plain_mismatches']} original(s) "
+                               "from the plain version")
     return acheck
 
 
@@ -874,10 +998,10 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--genome-len", type=int, default=4_641_652)
     ap.add_argument("--threads", type=int, default=os.cpu_count() or 8)
-    ap.add_argument("--only", choices=["band"], default=None,
-                    help="band: env, build, dataset, align_check and "
-                    "band_card only, then exit 0 without the result line "
-                    "(a trial run of the band kernel)")
+    ap.add_argument("--only", choices=["band", "wfa"], default=None,
+                    help="band / wfa: env, build, dataset, align_check and "
+                    "band_card / wfa_card only, then exit 0 without the "
+                    "result line (a trial run of one align kernel)")
     ap.add_argument("--work", default=None,
                     help="dataset directory (default: tmp/chip_smoke in "
                     "the checkout, removed at the end)")
@@ -917,7 +1041,9 @@ def main(argv=None) -> int:
                   for n, r in log.items()},
          poa_full_stock=poa_resources(dev, sms),
          align_band_resources=band_resources(dev, sms,
-                                             log["align_band"]["ptxas"]))
+                                             log["align_band"]["ptxas"]),
+         align_wfa_resources=wfa_resources(dev, sms,
+                                           log["align_wfa"]["ptxas"]))
     for name, rec in log.items():
         if "registers" not in rec["ptxas"]:
             raise RuntimeError(f"no ptxas report for {name}")
@@ -944,8 +1070,8 @@ def main(argv=None) -> int:
     emit("dataset", genome_len=args.genome_len, simulate_s=round(t_sim, 3),
          region_windows=len(region_windows))
 
-    if args.only == "band":
-        band_phases(region, dev, cpu)
+    if args.only is not None:
+        align_phases(region, dev, cpu, args.only)
         emit("partial", only=args.only,
              run_s=round(time.perf_counter() - t_run, 3))
         if args.work is None:
@@ -976,8 +1102,8 @@ def main(argv=None) -> int:
                            "batch differ from their originals or from the "
                            "plain version")
 
-    # ---- align_check, band_card ----------------------------------------
-    acheck = band_phases(region, dev, cpu)
+    # ---- align_check, band_card, wfa_card --------------------------------
+    acheck = align_phases(region, dev, cpu)
 
     # ---- polish (the main path, counted) --------------------------------
     argv_polish = ["-t", str(args.threads), "-m", "5", "-x", "-4", "-g",
@@ -1023,7 +1149,8 @@ def main(argv=None) -> int:
          align_dispatches=polisher.align_dispatches,
          align_kernel_ms={k: round(v, 3) for k, v in
                           polisher.align_kernel_ms.items()},
-         align_band_phases=band_split(polisher.align_band_cycles),
+         align_band_phases=cycle_split(polisher.align_cycles["align_band"]),
+         align_wfa_phases=wfa_split(polisher.align_cycles["align_wfa"]),
          draft_distance=d_draft, polished_distance=d_pol)
     for name, n in launches.items():
         if n <= 0:

@@ -24,7 +24,8 @@ from racon_tpu_torch.io.parsers import (MalformedInputError,
 USAGE = """usage: racon_tpu_torch [options ...] <sequences> <overlaps> <target sequences>
 
     <sequences>  FASTA/FASTQ (gzip allowed) reads used for correction
-    <overlaps>   PAF (gzip allowed) overlaps of reads and targets
+    <overlaps>   MHAP/PAF/SAM (gzip allowed) overlaps of reads and
+                 targets
     <target sequences>  FASTA/FASTQ (gzip allowed) sequences to correct
 
     options:
@@ -34,6 +35,9 @@ USAGE = """usage: racon_tpu_torch [options ...] <sequences> <overlaps> <target s
         -w, --window-length <int>  default 500
         -q, --quality-threshold <float>  default 10.0
         -e, --error-threshold <float>    default 0.3
+                                   (the three long forms also as
+                                   --window-length=<int> etc.)
+        -T, --no-trimming          do not trim the consensus windows
         -m, --match <int>          default 3
         -x, --mismatch <int>       default -5
         -g, --gap <int>            default -4
@@ -69,11 +73,18 @@ def parse_args(argv):
                   "-t": ("threads", int), "--threads": ("threads", int),
                   "--cudaaligner-batches": ("cuda_aligner_batches", int),
                   "--device": ("device", str)}
+    # long options that also take their value after "="
+    eq_opts = ("--window-length", "--quality-threshold",
+               "--error-threshold")
     positionals = []
     i, n = 0, len(argv)
     while i < n:
         a = argv[i]
-        if a in value_opts:
+        name, eq, value = a.partition("=")
+        if eq and name in eq_opts:
+            key, conv = value_opts[name]
+            opts[key] = conv(value)
+        elif a in value_opts:
             key, conv = value_opts[a]
             i += 1
             if i >= n:
@@ -83,6 +94,8 @@ def parse_args(argv):
             opts["drop_unpolished"] = False
         elif a in ("-f", "--fragment-correction"):
             opts["type"] = PolisherType.kF
+        elif a in ("-T", "--no-trimming"):
+            opts["trim"] = False
         elif a in ("-c", "--cudapoa-batches"):
             opts["cuda_poa_batches"] = 1
             if i + 1 < n and argv[i + 1] and \

@@ -117,9 +117,13 @@ class Polisher:
         if targets_size == 0:
             raise InvalidInputError("empty target sequences set!")
 
+        # names (PAF, SAM) and 0-based file ids (MHAP): id_to_id keys
+        # are id << 1 | 1 for targets, id << 1 | 0 for reads
         name_to_id: Dict[str, int] = {}
+        id_to_id: Dict[int, int] = {}
         for i in range(targets_size):
             name_to_id[self.sequences[i].name + "t"] = i
+            id_to_id[i << 1 | 1] = i
         has_name = [True] * targets_size
         has_data = [True] * targets_size
         has_reverse_data = [False] * targets_size
@@ -150,10 +154,12 @@ class Polisher:
                             f"duplicate sequence {seq.name} with unequal "
                             "data")
                     name_to_id[seq.name + "q"] = existing
+                    id_to_id[sequences_size << 1 | 0] = existing
                     n_dropped += 1
                 else:
                     new_id = i - n_dropped
                     name_to_id[seq.name + "q"] = new_id
+                    id_to_id[sequences_size << 1 | 0] = new_id
                     kept.append(seq)
                 sequences_size += 1
             del self.sequences[chunk_start:]
@@ -175,7 +181,7 @@ class Polisher:
                         "sequences")
         self.logger.log()
 
-        overlaps = self._load_overlaps(name_to_id, has_data,
+        overlaps = self._load_overlaps(name_to_id, id_to_id, has_data,
                                        has_reverse_data)
         if not overlaps:
             raise InvalidInputError("empty overlap set!")
@@ -201,7 +207,8 @@ class Polisher:
         self.logger.log("[racon_tpu_torch::Polisher::initialize] "
                         "transformed data into windows")
 
-    def _load_overlaps(self, name_to_id, has_data, has_reverse_data) -> List[Overlap]:
+    def _load_overlaps(self, name_to_id, id_to_id, has_data,
+                       has_reverse_data) -> List[Overlap]:
         """Stream overlaps, transmute, and filter (polisher.cpp:283-354)."""
         overlaps: List[Optional[Overlap]] = []
 
@@ -230,7 +237,7 @@ class Polisher:
             status = self.oparser.parse(overlaps, CHUNK_SIZE)
             c = l
             for i in range(l, len(overlaps)):
-                overlaps[i].transmute(self.sequences, name_to_id)
+                overlaps[i].transmute(self.sequences, name_to_id, id_to_id)
                 if not overlaps[i].is_valid:
                     overlaps[i] = None
                     continue

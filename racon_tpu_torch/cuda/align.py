@@ -43,17 +43,23 @@ def _timed(device, launch):
 def wfa_dispatch(queries, targets, lq: int, emax: int, device):
     """Launch one WFA chunk; ``collect()`` gives (tapes [n, entries]
     int64, entry counts, distances) with distances exact (<= emax) or
-    ``BIG`` for rejected pairs."""
+    ``BIG`` for rejected pairs; it also sets ``collect.phase_cycles``,
+    the kernel's summed [wavefront steps, traceback] cycles
+    (``meta[:, 2:4]``, 0 on the CPU)."""
     n = len(queries)
     q = torch.from_numpy(al.encode_batch(queries, lq, al.QPAD)).to(device)
     t = torch.from_numpy(al.encode_batch(targets, lq, al.TPAD)).to(device)
+    lmax = max(max(map(len, queries)), max(map(len, targets)), 1)
     (tape, meta), ms = _timed(device, lambda: aw.wfa_align(
         q, t, _lengths(queries, device), _lengths(targets, device),
-        emax=emax))
+        emax=emax, lmax=lmax))
 
     def collect():
         tp = tape.cpu().numpy().reshape(n, -1).astype(np.int64)
         mt = meta.cpu().numpy()
+        if (mt[:, 0] == aw.TOO_LONG).any():
+            raise RuntimeError(f"align_wfa: a pair longer than lmax={lmax}")
+        collect.phase_cycles = mt[:, 2:4].astype(np.int64).sum(0).tolist()
         return tp, mt[:, 1], mt[:, 0]
 
     collect.kernel_ms = ms

@@ -19,7 +19,10 @@ bases 0..4, q pad 5, t pad 6), ``ql``/``tl`` ``[B]`` int32.  Outputs:
 (op 0 the final e = 0 slide, 1 substitution, 2 insertion, 3 deletion) in
 traceback order, zero past the count, and ``meta [B, 8]`` int32: 0 the
 distance (``BIG`` when rejected: empty, ``|tl - ql| > emax`` or a
-distance past emax), 1 the tape entry count (0 when rejected).
+distance past emax; ``TOO_LONG`` from the kernel for a pair longer than
+the launch's ``lmax``, which it does not align), 1 the tape entry count
+(0 when rejected), 2 and 3 the kernel's clock64() cycles of the pair's
+wavefront steps and traceback (0 from the plain version).
 
 ``wfa_align`` launches the kernel (``csrc/align_wfa.cu``) for CUDA
 tensors and runs ``wfa_align_reference`` for CPU tensors.  The plain
@@ -37,12 +40,14 @@ import torch
 from racon_tpu_torch.cuda import aligner as al
 
 BIG = 1 << 20
+TOO_LONG = -1                # kernel's meta[:, 0] of a pair past lmax
 NEG = -(1 << 20)             # inactive-diagonal sentinel
 NEG_H = -(1 << 19)           # activity threshold
 W_SUB, W_INS, W_DEL = 1, 2, 3
-MAX_DIM = 1 << 14            # longest row: the plain version keeps its
-                             # history as int16
+MAX_DIM = 1 << 14            # longest row: the history is int16
 SMEM_MAX = 232_448           # shared memory a block may opt into
+WIN = 32                     # kernel's traceback window: steps (kWin)
+SYNC_WORDS = 4               # kernel's per-block exchange words (kSync)
 
 #: kernel launches made by ``wfa_align`` (plain-version calls excluded)
 LAUNCHES = 0
@@ -64,28 +69,43 @@ def wfa_tape_rows(emax: int) -> int:
 
 
 def hist_words(emax: int) -> int:
-    """int32 history words per pair in the kernel: wavefront e keeps
-    only its live diagonals [-e, e], so the rows sum to (emax + 1)^2."""
-    return (emax + 1) ** 2
+    """int16 history entries per pair in the kernel: wavefront e keeps
+    its live diagonals [-e, e] with padding, 2 e + 6 entries a row."""
+    return (emax + 1) * (emax + 6)
 
 
-def smem_bytes(lq: int, emax: int) -> int:
-    """Shared memory of one block: q and t as 4-bit codes (8 per word,
-    with pad words) and two wavefront buffers over [-emax-2, emax+2]."""
-    nib = (lq + 16) // 8 + 2
-    return 4 * (2 * nib + 2 * (2 * emax + 5) + 4)
+def smem_bytes(lmax: int, emax: int) -> int:
+    """Shared memory of one block for pairs of at most ``lmax`` bases:
+    the exchange words, then q and t as 4-bit codes (8 per word, with
+    pad words) and two int16 wavefront buffers over d in [-h, h + 1], h
+    = min(emax, lmax) + 3 rounded down to even, which the traceback
+    window (WIN steps x 2 WIN + 2 int16) reuses; mirrors ``layout`` in
+    ``csrc/align_wfa.cu``."""
+    nib = (lmax + 16) // 8 + 2
+    wf = 2 * ((min(emax, lmax) + 3) & ~1) + 2
+    win = WIN * (2 * WIN + 2) // 2
+    return 4 * (SYNC_WORDS + max(2 * nib + wf, win))
 
 
 def wfa_per_pair_bytes(lq: int, emax: int) -> int:
-    """Device bytes one pair costs at rung ``emax``: the wavefront
+    """Device bytes one pair costs at rung ``emax``: the int16 wavefront
     history dominates, plus q/t, lengths, tape and meta."""
-    return 4 * hist_words(emax) + 2 * lq + 8 \
+    return 2 * hist_words(emax) + 2 * lq + 8 \
         + 4 * (128 * wfa_tape_rows(emax) + 8)
 
 
 def fits(lq: int, emax: int) -> bool:
     return 1 <= emax and 0 < lq <= MAX_DIM \
         and smem_bytes(lq, emax) <= SMEM_MAX
+
+
+def resident_slots(device, lmax: int, emax: int, b: int) -> int:
+    """Pairs the kernel holds at once on ``device`` at (lmax, emax) in a
+    launch of ``b`` pairs (which sets the warps per pair)."""
+    from racon_tpu_torch.cuda import build
+
+    with torch.cuda.device(device):
+        return int(build.load("align_wfa").align_wfa_slots(lmax, emax, b))
 
 
 def check_inputs(q, t, ql, tl, emax: int) -> Tuple[int, int]:
@@ -108,12 +128,20 @@ def check_inputs(q, t, ql, tl, emax: int) -> Tuple[int, int]:
     return b, lq
 
 
-def wfa_align(q, t, ql, tl, *, emax: int):
-    """(tape, meta) of every pair, on the inputs' device.  CUDA tensors
-    launch the kernel; CPU tensors run the plain version."""
+def wfa_align(q, t, ql, tl, *, emax: int, lmax: int):
+    """(tape, meta) of every pair, on the inputs' device.  ``lmax`` in
+    [1, lq] bounds every ql / tl of the batch (the caller knows the
+    lengths): CUDA tensors launch the kernel with shared memory sized
+    for it, and the kernel marks a pair past it with meta[:, 0] =
+    ``TOO_LONG``; CPU tensors run the plain version, after raising on a
+    pair past it."""
     global LAUNCHES
     b, lq = check_inputs(q, t, ql, tl, emax)
+    if not 1 <= lmax <= lq:
+        raise ValueError(f"lmax={lmax} outside [1, lq={lq}]")
     if q.device.type == "cpu":
+        if b and int(torch.maximum(ql, tl).max()) > lmax:
+            raise ValueError(f"a pair is longer than lmax={lmax}")
         return wfa_align_reference(q, t, ql, tl, emax=emax)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
@@ -126,13 +154,19 @@ def wfa_align(q, t, ql, tl, *, emax: int):
     meta = torch.zeros((b, 8), dtype=torch.int32, device=dev)
     if b == 0:
         return tape, meta
-    hist = torch.empty((b, hist_words(emax)), dtype=torch.int32, device=dev)
+    # the int16 history of every pair, and the pair queue of the
+    # persistent blocks, longest pairs first
+    hist = torch.empty((b, hist_words(emax)), dtype=torch.int16, device=dev)
+    order = torch.argsort(torch.maximum(ql, tl), descending=True,
+                          stable=True).to(torch.int32)
+    queue = torch.zeros(1, dtype=torch.int32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         err = lib.align_wfa_launch(
             q.data_ptr(), t.data_ptr(), ql.data_ptr(), tl.data_ptr(),
-            tape.data_ptr(), meta.data_ptr(), hist.data_ptr(), b, lq, emax,
-            rows * 128, smem_bytes(lq, emax), stream)
+            tape.data_ptr(), meta.data_ptr(), hist.data_ptr(),
+            order.data_ptr(), queue.data_ptr(), b, lq, lmax, emax,
+            rows * 128, stream)
     if err != 0:
         raise RuntimeError(f"align_wfa kernel launch failed: "
                            f"{build.error_string('align_wfa', err)} ({err})")

@@ -31,12 +31,15 @@ _VP, _I = ctypes.c_void_p, ctypes.c_int
 #: stream as c_void_p, so ctypes never cuts them to 32 bits)
 SIGNATURES = {
     "poa_full": [_VP] * 10 + [ctypes.c_longlong] + [_I] * 16 + [_VP],
-    "align_wfa": [_VP] * 7 + [_I] * 5 + [_VP],
+    "align_wfa": [_VP] * 9 + [_I] * 5 + [_VP],
     "align_band": [_VP] * 9 + [_I] * 7 + [_VP],
 }
 
 #: other C functions of a library: name -> (argument types, result)
 EXTRA = {"poa_full": {"poa_full_slots": ([_I] * 3, _I)},
+         "align_wfa": {"align_wfa_slots": ([_I] * 3, _I),
+                       "align_wfa_smem": ([_I] * 2, _I),
+                       "align_wfa_warps": ([_I], _I)},
          "align_band": {"align_band_slots": ([_I] * 2, _I),
                         "align_band_smem": ([_I] * 2, _I),
                         "align_band_warps": ([_I] * 2, _I)}}

@@ -94,9 +94,9 @@ class CudaPolisher(Polisher):
         #: per kernel: DP cells its dispatches computed, (min(d, emax)
         #: + 1)^2 per WFA pair and query rows x band per band pair
         self.align_cells = {"align_wfa": 0, "align_band": 0}
-        #: the band kernel's summed clock64() cycles per phase (meta[:,
-        #: 2:4]): DP rows, traceback
-        self.align_band_cycles = [0, 0]
+        #: per kernel: summed clock64() cycles per phase (meta[:, 2:4]):
+        #: wavefront steps or DP rows, then traceback
+        self.align_cycles = {"align_wfa": [0, 0], "align_band": [0, 0]}
 
     def _poa_caps(self):
         """Power-of-two graph/layer caps scaled from the window length:
@@ -295,7 +295,7 @@ class CudaPolisher(Polisher):
             res = collect()
             self.align_kernel_ms[kernel] += collect.kernel_ms()
             for k, c in enumerate(getattr(collect, "phase_cycles", ())):
-                self.align_band_cycles[k] += c
+                self.align_cycles[kernel][k] += c
             for k, i in enumerate(sub):
                 if not accept(i, k, res):
                     still.add(i)

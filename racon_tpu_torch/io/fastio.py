@@ -1,4 +1,4 @@
-"""Vectorized zero-copy parsers for FASTA, FASTQ and PAF.
+"""Vectorized zero-copy parsers for FASTA, FASTQ, PAF, MHAP and SAM.
 
 The scan parsers read the whole file once (mmap for plain files, one
 ``gzip.decompress`` for compressed ones), build a line-offset table
@@ -6,10 +6,11 @@ with a single numpy newline scan, and parse record fields in batched
 vector passes; only record construction remains per-row Python.
 
 Chunk boundaries follow the same "raw bytes consumed" arithmetic as
-line parsers (FASTA does not count prelude lines, PAF does not count
-blank lines).  A PAF row the vector pass cannot answer for bit-exactly
-(non-digit int field, missing columns, non-ASCII strand byte) falls
-back to :class:`racon_tpu_torch.io.parsers.PafParser` for that row,
+line parsers (FASTA does not count prelude lines, the overlap formats
+do not count blank lines).  An overlap row the vector pass cannot
+answer for bit-exactly (non-digit int field, missing columns, non-ASCII
+strand byte, a CIGAR run of more than 18 digits) falls back to the
+matching line parser of :mod:`racon_tpu_torch.io.parsers` for that row,
 which reproduces tolerant parses and the exact error text.
 """
 
@@ -22,7 +23,9 @@ from typing import List, Optional
 
 import numpy as np
 
-from racon_tpu_torch.core.overlap import Overlap
+from racon_tpu_torch.core.overlap import (InvalidInputError, Overlap,
+                                          _sam_run_fields,
+                                          parse_cigar_runs_batch)
 from racon_tpu_torch.core.sequence import Sequence
 from racon_tpu_torch.io import parsers as _line
 
@@ -286,14 +289,22 @@ class FastqScanParser(_ScanParserBase):
         return False
 
 
-class PafScanParser(_ScanParserBase):
-    """PAF: 9 leading tab-separated columns; extra columns ignored."""
+class _OverlapScanParser(_ScanParserBase):
+    """Chunking and the per-row fallback shared by the overlap formats:
+    a parse stops after the first nonempty line that crosses the byte
+    budget (blank lines are skipped uncounted, as the line parsers
+    count), and the vector passes run over bounded blocks of lines."""
 
-    format_label = "Paf"
-    line_parser = _line.PafParser
+    #: the matching line parser class; supplies ``record_from_line``
+    line_parser = None
 
     def _post_reset(self) -> None:
         self._cursor = 0
+
+    def _select_rows(self, a: int, b: int):
+        """Line starts and ends of lines [a, b) and the nonempty rows."""
+        s, e = self._starts[a:b], self._ends[a:b]
+        return s, e, np.flatnonzero(e > s)
 
     def parse(self, dst: List[Overlap], max_bytes: int) -> bool:
         self._ensure_scanned()
@@ -304,8 +315,6 @@ class PafScanParser(_ScanParserBase):
         if max_bytes < 0:
             i1, more = n, False
         else:
-            # stop AFTER the first nonempty line that crosses the
-            # budget; blank lines are skipped uncounted
             s = self._starts[i0:]
             nonempty = self._ends[i0:] > s
             cum = np.cumsum(np.where(nonempty,
@@ -316,7 +325,7 @@ class PafScanParser(_ScanParserBase):
             else:
                 i1, more = n, False
         self._cursor = i1
-        # vector passes run over bounded blocks: the field matrices
+        # the field matrices (and the SAM path's expanded CIGAR columns)
         # scale with the block, not the file
         csum = np.cumsum(self._rawnext[i0:i1] - self._starts[i0:i1])
         j = i0
@@ -328,8 +337,13 @@ class PafScanParser(_ScanParserBase):
             j = k
         return more
 
+    def _parse_lines(self, dst: List[Overlap], a: int, b: int) -> None:
+        raise NotImplementedError
+
     def _fallback_line(self, dst: List[Overlap], line_idx: int) -> None:
-        """Parse one line through the line parser's record factory."""
+        """Parse one line through the line parser's record factory: the
+        rows the vector pass flagged, with tolerant parses and exact
+        malformed-input diagnostics."""
         try:
             record = self.line_parser.record_from_line(
                 self._line(line_idx))
@@ -343,9 +357,15 @@ class PafScanParser(_ScanParserBase):
             f"{self.path}:{line_idx + 1}: malformed "
             f"{self.format_label} record ({exc})")
 
+
+class PafScanParser(_OverlapScanParser):
+    """PAF: 9 leading tab-separated columns; extra columns ignored."""
+
+    format_label = "Paf"
+    line_parser = _line.PafParser
+
     def _parse_lines(self, dst: List[Overlap], a: int, b: int) -> None:
-        s, e = self._starts[a:b], self._ends[a:b]
-        rows = np.flatnonzero(e > s)
+        s, e, rows = self._select_rows(a, b)
         if rows.size == 0:
             return
         ls, le = s[rows], e[rows]
@@ -396,3 +416,109 @@ class PafScanParser(_ScanParserBase):
                 "-" if minus_l[r] else "+",
                 t_name, v[3], v[4], v[5]))
 
+
+class MhapScanParser(_OverlapScanParser):
+    """MHAP: whitespace-separated columns; ids and coordinates at tokens
+    0, 1 and 4-11 (the scores at 2 and 3 are never parsed)."""
+
+    format_label = "Mhap"
+    line_parser = _line.MhapParser
+
+    _INT_TOKENS = (0, 1, 4, 5, 6, 7, 8, 9, 10, 11)
+
+    def _parse_lines(self, dst: List[Overlap], a: int, b: int) -> None:
+        s, e, rows = self._select_rows(a, b)
+        if rows.size == 0:
+            return
+        ls, le = s[rows], e[rows]
+        arr = self._arr
+        lo, hi = int(ls[0]), int(le[-1])
+        seg = arr[lo:hi]
+        ws = ((seg == 32) | (seg == 9) | (seg == 10) | (seg == 13) |
+              (seg == 11) | (seg == 12))
+        token = ~ws
+        tok_s = np.flatnonzero(
+            token & np.concatenate(([True], ws[:-1]))).astype(np.int64) + lo
+        tok_e = np.flatnonzero(
+            token & np.concatenate((ws[1:], [True]))).astype(np.int64) \
+            + lo + 1
+        t0 = np.searchsorted(tok_s, ls)
+        idx = t0[:, None] + np.arange(12, dtype=np.int64)
+        starts12 = _gather(tok_s, idx)
+        ends12 = _gather(tok_e, idx)
+        has12 = ends12[:, 11] <= le       # token 11 ends inside the line
+        ints, int_bad = _parse_int_matrix(
+            arr, starts12[:, self._INT_TOKENS],
+            np.minimum(ends12, _BIG)[:, self._INT_TOKENS])
+        bad = (~has12 | int_bad).tolist()
+        vals = ints.tolist()
+        lines = (a + rows).tolist()
+        for r in range(len(lines)):
+            if bad[r]:
+                self._fallback_line(dst, lines[r])
+                continue
+            v = vals[r]
+            dst.append(Overlap.from_mhap(
+                v[0], v[1], v[2], v[3], v[4], v[5], v[6], v[7], v[8],
+                v[9]))
+
+
+class SamScanParser(_OverlapScanParser):
+    """SAM alignment lines: '@' headers skipped, 6 leading tab columns,
+    CIGARs parsed in one batched pass straight into ``cigar_runs``."""
+
+    format_label = "Sam"
+    line_parser = _line.SamParser
+
+    def _parse_lines(self, dst: List[Overlap], a: int, b: int) -> None:
+        s, e, rows = self._select_rows(a, b)
+        if rows.size == 0:
+            return
+        ls, le = s[rows], e[rows]
+        arr = self._arr
+        record = arr[ls] != 64            # '@' header lines skipped
+        rows, ls, le = rows[record], ls[record], le[record]
+        if rows.size == 0:
+            return
+        lo, hi = int(ls[0]), int(le[-1])
+        tabs = np.flatnonzero(arr[lo:hi] == 9).astype(np.int64) + lo
+        t0 = np.searchsorted(tabs, ls)
+        tab5 = _gather(tabs, t0[:, None] + np.arange(5, dtype=np.int64))
+        has6 = tab5[:, 4] < le
+        tab_after = _gather(tabs, (t0 + 5)[:, None])[:, 0]
+        f5_end = np.where(tab_after < le, tab_after, le)
+        fs1 = np.minimum(tab5, _BIG - 2) + 1
+        ints, int_bad = _parse_int_matrix(
+            arr, fs1[:, (0, 2)], tab5[:, (1, 3)])
+        cig_s = np.minimum(fs1[:, 4], f5_end)
+        cig_e = f5_end
+        runs, runs_bad = parse_cigar_runs_batch(
+            arr, np.where(has6, cig_s, 0), np.where(has6, cig_e, 0))
+        bad = (~has6 | int_bad | runs_bad).tolist()
+        flags = ints[:, 0].tolist()
+        positions = ints[:, 1].tolist()
+        clens = (cig_e - cig_s).tolist()
+        f0s, f0e = ls.tolist(), tab5[:, 0].tolist()
+        f2s, f2e = fs1[:, 1].tolist(), tab5[:, 2].tolist()
+        lines = (a + rows).tolist()
+        buf = self._buf
+        for r in range(len(lines)):
+            if bad[r]:
+                self._fallback_line(dst, lines[r])
+                continue
+            flag = flags[r]
+            if clens[r] < 2 and not flag & 0x4:
+                # a mapped record must carry an alignment (raised as the
+                # line parser raises it)
+                raise InvalidInputError(
+                    "missing alignment from SAM object")
+            try:
+                q_name = bytes(buf[f0s[r]:f0e[r]]).decode()
+                t_name = bytes(buf[f2s[r]:f2e[r]]).decode()
+            except UnicodeDecodeError as exc:
+                raise self._malformed(lines[r], exc) from exc
+            o = Overlap._from_sam_fields(
+                q_name, flag, t_name, positions[r],
+                *_sam_run_fields(*runs[r]))
+            o.cigar_runs = runs[r]
+            dst.append(o)
