@@ -2,7 +2,7 @@
 """On-card smoke run of the PyTorch/CUDA port (racon_tpu_torch).
 
     python3 chip_smoke.py [--genome-len N] [--threads T] [--work DIR]
-                          [--only band|wfa]
+                          [--only band|wfa|default]
 
 Needs one CUDA card.  Phases, one JSON line each:
 
@@ -55,12 +55,29 @@ Needs one CUDA card.  Phases, one JSON line each:
                 replica must equal its original and 8 originals the
                 plain version;
 6. polish       the port's CLI (-m 5 -x -4 -g -8 -c 1
-                --cudaaligner-batches 1) on the whole set: all three
-                kernels launched, CPU fall-through <= 10% of the
-                device-eligible overlaps, POA rejects <= 10% of
-                eligible windows, polished distance to truth <= draft
-                distance / 10; with every kernel's summed phase cycles
-                and main-path bound;
+                --cudaaligner-batches 1) on the whole set, staged and
+                all on the card (RACON_TPU_TORCH_PIPELINE=0 and both
+                *_DEVICE_ONLY=1): all three kernels launched, CPU
+                fall-through <= 10% of the device-eligible overlaps,
+                POA rejects <= 10% of eligible windows, polished
+                distance to truth <= draft distance / 10; with every
+                kernel's summed phase cycles and main-path bound;
+   polish_default  the same CLI at the port's defaults (streaming
+                pipeline, device/CPU splits of both stages), twice, in
+                a fresh calibration store under the work directory:
+                the first run at the built-in rates stores generation
+                1, the second reads it; a third run as the second but
+                with the align stage all on the card
+                (RACON_TPU_TORCH_ALIGN_DEVICE_ONLY=1), which splits the
+                default path's wall between its parts.  Each: walls,
+                both cuts, the rates and their source, per-rung chunk
+                walls, speculative windows used and wasted, the
+                ledger's ready high-water, the pipeline overlap, the
+                stored rates and the distance (<= draft / 10); every
+                kernel launched;
+   pipeline_bytes  the first 1 Mb of the set at the second run's
+                stored rates, pinned: pipeline off, then on; the FASTA
+                must be byte-identical;
 7. native_compare  200 region windows on the POA kernel and on the
                 native CPU engine: summed edit distance between the two;
 8. kernels      every ported kernel with its launches in phase 6.
@@ -69,12 +86,15 @@ Then the card's line as nvidia-smi prints it and the result line.  Any
 failure raises and the script exits non-zero without a result line.
 ``--only band`` (``--only wfa``) runs phases 1-3, align_check and
 band_card (wfa_card), then exits 0 without the result line (a few
-minutes: a trial of one align kernel).
+minutes: a trial of one align kernel); ``--only default`` runs phases
+1-3, polish_default and pipeline_bytes the same way.  The calibration
+store is off (``RACON_TPU_TORCH_CACHE_DIR=""``) outside polish_default.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import random
@@ -127,6 +147,15 @@ def card_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
+
+
+def card_state() -> str:
+    """SM clock, power draw, temperature and active throttle reasons,
+    as nvidia-smi reads them now."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,temperature.gpu,"
+         "clocks_throttle_reasons.active", "--format=csv,noheader"],
+        capture_output=True, text=True).stdout.strip()
 
 
 def read_fasta(path: str) -> bytes:
@@ -994,14 +1023,194 @@ def align_phases(region, dev, cpu, only=None) -> dict:
     return acheck
 
 
+@contextlib.contextmanager
+def env_set(**kw):
+    """Set environment variables for a block (None unsets), restoring
+    them after."""
+    saved = {k: os.environ.get(k) for k in kw}
+
+    def put(values):
+        for k, v in values.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+    put(kw)
+    try:
+        yield
+    finally:
+        put(saved)
+
+
+#: the port's knobs of the default path, all unset there
+DEFAULT_PATH_KNOBS = (
+    "RACON_TPU_TORCH_PIPELINE", "RACON_TPU_TORCH_ALIGN_DEVICE_ONLY",
+    "RACON_TPU_TORCH_POA_DEVICE_ONLY", "RACON_TPU_TORCH_ALIGN_SPLIT",
+    "RACON_TPU_TORCH_POA_SPLIT", "RACON_TPU_TORCH_RECALIBRATE") + tuple(
+    f"RACON_TPU_TORCH_RATE_{pin}"
+    for pin in ("POA_DEV", "POA_CPU", "ALIGN_DEV", "ALIGN_CPU",
+                "ALIGN_WFA_DEV", "ALIGN_CPU_DEV"))
+
+
+def chunk_rates(chunks) -> dict:
+    """Per align rung: chunks, summed wall and busy time (collect to
+    collect; busy is what the rate store keeps), units, and ns per unit
+    of each, the first chunk included."""
+    out = {}
+    for kernel, rung, wall, busy, units in chunks:
+        r = out.setdefault(rung, {"chunks": 0, "wall_s": 0.0,
+                                  "busy_s": 0.0, "units": 0})
+        r["chunks"] += 1
+        r["wall_s"] += wall
+        r["busy_s"] += busy
+        r["units"] += int(units)
+    for r in out.values():
+        r["ns_per_unit"] = round(r["wall_s"] * 1e9 / max(1, r["units"]), 1)
+        r["busy_ns_per_unit"] = round(
+            r["busy_s"] * 1e9 / max(1, r["units"]), 1)
+        r["wall_s"] = round(r["wall_s"], 3)
+        r["busy_s"] = round(r["busy_s"], 3)
+    return out
+
+
+def counted_polish(cli, argv, out_path):
+    """One CLI polish with every kernel's launch count set to 0 just
+    before it; returns (polisher, wall s, launches)."""
+    from racon_tpu_torch.cuda import align_band as ab
+    from racon_tpu_torch.cuda import align_wfa as aw
+    from racon_tpu_torch.cuda import poa_full as pf
+
+    before = card_state()
+    pf.LAUNCHES = aw.LAUNCHES = ab.LAUNCHES = 0
+    t0 = time.perf_counter()
+    with open(out_path, "wb") as out:
+        polisher = cli.main(argv, out=out)
+    wall = time.perf_counter() - t0
+    polisher.card_states = (before, card_state())
+    return polisher, wall, {"poa_full": pf.LAUNCHES,
+                            "align_wfa": aw.LAUNCHES,
+                            "align_band": ab.LAUNCHES}
+
+
+def default_path(cli, cpu, work, reads, paf, draft, truth, d_draft,
+                 threads) -> None:
+    """polish_default (twice, fresh calibration store) and
+    pipeline_bytes (pipeline off vs on at the stored rates, pinned)."""
+    from racon_tpu_torch.cuda.polisher import CudaPolisher
+
+    store = os.path.join(work, "calib")
+    shutil.rmtree(store, ignore_errors=True)
+    argv = ["-t", str(threads), "-m", "5", "-x", "-4", "-g", "-8", "-c",
+            "1", "--cudaaligner-batches", "1"]
+    knobs = dict.fromkeys(DEFAULT_PATH_KNOBS)
+    doc = {}
+    # run 3 attributes the default path's wall: the pipeline and the POA
+    # split as in run 2, the align stage all on the card
+    for run in (1, 2, 3):
+        out_path = os.path.join(work, f"default{run}.fasta")
+        with env_set(RACON_TPU_TORCH_CACHE_DIR=store, **{
+                **knobs, "RACON_TPU_TORCH_ALIGN_DEVICE_ONLY":
+                    "1" if run == 3 else None}):
+            pol, wall, launches = counted_polish(
+                cli, argv + [reads, paf, draft], out_path)
+        if run < 3:
+            with open(os.path.join(store, "calibration.json")) as fh:
+                doc = json.load(fh)
+        d_pol = chunked_distance(read_fasta(out_path), truth, cpu)
+        a, p = pol.align_split_detail, pol.poa_split_detail
+        emit("polish_default", run=run,
+             align_device_only=run == 3, argv=argv, wall_s=round(wall, 3),
+             stage_walls_s={k: round(v, 3)
+                            for k, v in pol.stage_walls.items()},
+             launches=launches,
+             align_cut={"device": a.get("cut", 0),
+                        "cpu": a.get("n_pending", 0) - a.get("cut", 0),
+                        "probed": pol.align_probed,
+                        "over_length": pol.align_over_length,
+                        "fallthrough": pol.align_cpu_fallthrough},
+             align_split=a, align_rungs=pol.align_rungs,
+             align_chunks=chunk_rates(pol.align_chunks),
+             align_kernel_ms={k: round(v, 3)
+                              for k, v in pol.align_kernel_ms.items()},
+             poa_cut={"device": p.get("cut", 0),
+                      "cpu": p.get("n_eligible", 0) - p.get("cut", 0),
+                      "on_kernel": pol.poa_engine.windows_on_kernel,
+                      "rejected": sum(pol.poa_reject_counts.values())},
+             poa_split=p, poa_batch=pol.poa_batch_size,
+             poa_kernel_ms=round(pol.poa_engine.kernel_ms, 3),
+             poa_spec_used=pol.poa_spec_used,
+             poa_spec_wasted=pol.poa_spec_wasted,
+             poa_spec_megabatches=pol.poa_spec_megabatches,
+             spec_walls_s={k: round(v, 3)
+                           for k, v in pol.spec_walls.items()},
+             ready_high_water=pol.ready_high_water,
+             pipeline_overlap_s=round(pol.pipeline_overlap_s, 3),
+             stored_rates=doc, card_states=pol.card_states,
+             draft_distance=d_draft, polished_distance=d_pol)
+        if d_pol > d_draft / 10:
+            raise RuntimeError(f"polish_default run {run}: distance "
+                               f"{d_pol} > draft {d_draft} / 10")
+        for name, n in launches.items():
+            if n <= 0:
+                raise RuntimeError(f"polish_default run {run} launched no "
+                                   f"{name} kernel")
+
+    # pipeline_bytes: the second run's stored rates, pinned
+    (ent,) = doc.values()
+
+    def rate(stage, key, default):
+        return str(ent.get(stage, {}).get(key, default))
+
+    pins = {
+        "RACON_TPU_TORCH_RATE_POA_DEV": rate(
+            "poa", "dev", CudaPolisher.POA_DEV_US_PER_UNIT),
+        "RACON_TPU_TORCH_RATE_POA_CPU": rate(
+            "poa", "cpu", CudaPolisher.POA_CPU_US_PER_UNIT),
+        "RACON_TPU_TORCH_RATE_ALIGN_DEV": rate(
+            "align", "dev", CudaPolisher.DEV_NS_PER_ROW),
+        "RACON_TPU_TORCH_RATE_ALIGN_CPU": rate(
+            "align_cpu", "dev", CudaPolisher.CPU_NS_PER_CELL),
+        "RACON_TPU_TORCH_RATE_ALIGN_WFA_DEV": rate(
+            "align_wfa", "dev", CudaPolisher.WFA_DEV_NS_PER_STEP)}
+    region_bp = min(1_000_000, len(read_fasta(draft)))
+    region = cut_region(os.path.dirname(reads),
+                        os.path.join(work, "region_1mb"), region_bp)
+    outs, runs = {}, {}
+    for mode in ("0", "1"):
+        out_path = os.path.join(work, f"pipeline{mode}.fasta")
+        with env_set(**{**knobs, **pins,
+                        "RACON_TPU_TORCH_PIPELINE": mode}):
+            pol, wall, launches = counted_polish(cli, argv + list(region),
+                                                 out_path)
+        with open(out_path, "rb") as fh:
+            outs[mode] = fh.read()
+        runs["on" if mode == "1" else "off"] = {
+            "wall_s": round(wall, 3), "launches": launches,
+            "align_cut": pol.align_split_detail.get("cut"),
+            "poa_cut": pol.poa_split_detail.get("cut"),
+            "poa_spec_used": pol.poa_spec_used,
+            "poa_spec_wasted": pol.poa_spec_wasted,
+            "pipeline_overlap_s": round(pol.pipeline_overlap_s, 3),
+            "bytes": len(outs[mode])}
+    same = outs["0"] == outs["1"]
+    emit("pipeline_bytes", region_bp=region_bp, pins=pins, runs=runs,
+         identical=same)
+    if not same:
+        raise RuntimeError("pipeline on and off gave different FASTA at "
+                           "pinned rates")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--genome-len", type=int, default=4_641_652)
     ap.add_argument("--threads", type=int, default=os.cpu_count() or 8)
-    ap.add_argument("--only", choices=["band", "wfa"], default=None,
+    ap.add_argument("--only", choices=["band", "wfa", "default"],
+                    default=None,
                     help="band / wfa: env, build, dataset, align_check and "
-                    "band_card / wfa_card only, then exit 0 without the "
-                    "result line (a trial run of one align kernel)")
+                    "band_card / wfa_card only; default: env, build, "
+                    "dataset, polish_default and pipeline_bytes only; "
+                    "then exit 0 without the result line")
     ap.add_argument("--work", default=None,
                     help="dataset directory (default: tmp/chip_smoke in "
                     "the checkout, removed at the end)")
@@ -1012,6 +1221,8 @@ def main(argv=None) -> int:
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "false)", file=sys.stderr)
         return 2
+    # the calibration store stays off unless a phase names its own
+    os.environ["RACON_TPU_TORCH_CACHE_DIR"] = ""
     from racon_tpu_torch import cli, convert
     from racon_tpu_torch.core.polisher import (PolisherType,
                                                create_polisher)
@@ -1070,8 +1281,15 @@ def main(argv=None) -> int:
     emit("dataset", genome_len=args.genome_len, simulate_s=round(t_sim, 3),
          region_windows=len(region_windows))
 
+    if args.only in (None, "default"):
+        truth = read_fasta(os.path.join(data, "genome.fasta"))
+        d_draft = chunked_distance(read_fasta(draft), truth, cpu)
     if args.only is not None:
-        align_phases(region, dev, cpu, args.only)
+        if args.only == "default":
+            default_path(cli, cpu, work, reads, paf, draft, truth, d_draft,
+                         args.threads)
+        else:
+            align_phases(region, dev, cpu, args.only)
         emit("partial", only=args.only,
              run_s=round(time.perf_counter() - t_run, 3))
         if args.work is None:
@@ -1110,16 +1328,12 @@ def main(argv=None) -> int:
                    "-8", "-c", "1", "--cudaaligner-batches", "1", reads,
                    paf, draft]
     out_path = os.path.join(work, "polished.fasta")
-    pf.LAUNCHES = aw.LAUNCHES = ab.LAUNCHES = 0
-    t0 = time.perf_counter()
-    with open(out_path, "wb") as out:
-        polisher = cli.main(argv_polish, out=out)
-    wall = time.perf_counter() - t0
-    launches = {"poa_full": pf.LAUNCHES, "align_wfa": aw.LAUNCHES,
-                "align_band": ab.LAUNCHES}
+    with env_set(RACON_TPU_TORCH_PIPELINE="0",
+                 RACON_TPU_TORCH_ALIGN_DEVICE_ONLY="1",
+                 RACON_TPU_TORCH_POA_DEVICE_ONLY="1"):
+        polisher, wall, launches = counted_polish(cli, argv_polish,
+                                                  out_path)
     eng = polisher.poa_engine
-    truth = read_fasta(os.path.join(data, "genome.fasta"))
-    d_draft = chunked_distance(read_fasta(draft), truth, cpu)
     d_pol = chunked_distance(read_fasta(out_path), truth, cpu)
     rejects = sum(polisher.poa_reject_counts.values())
     eligible = polisher.poa_eligible_windows
@@ -1141,6 +1355,7 @@ def main(argv=None) -> int:
              "align_band": bound(0, 0, polisher.align_cells["align_band"]
                                  * OPS_PER_BAND_CELL)[0]},
          align_cells=polisher.align_cells,
+         align_chunks=chunk_rates(polisher.align_chunks),
          align_eligible=polisher.align_eligible,
          align_probed=polisher.align_probed,
          align_over_length=polisher.align_over_length,
@@ -1151,6 +1366,7 @@ def main(argv=None) -> int:
                           polisher.align_kernel_ms.items()},
          align_band_phases=cycle_split(polisher.align_cycles["align_band"]),
          align_wfa_phases=wfa_split(polisher.align_cycles["align_wfa"]),
+         card_states=polisher.card_states,
          draft_distance=d_draft, polished_distance=d_pol)
     for name, n in launches.items():
         if n <= 0:
@@ -1164,6 +1380,10 @@ def main(argv=None) -> int:
     if d_pol > d_draft / 10:
         raise RuntimeError(f"polished distance {d_pol} > draft "
                            f"{d_draft} / 10")
+
+    # ---- polish_default, pipeline_bytes (the default path, counted) ------
+    default_path(cli, cpu, work, reads, paf, draft, truth, d_draft,
+                 args.threads)
 
     # ---- native_compare (outside the counted run) -----------------------
     sample = [w for w in region_windows if engine.fits([w])][:200]

@@ -35,7 +35,8 @@ USAGE = """usage: racon_tpu_torch [options ...] <sequences> <overlaps> <target s
         -w, --window-length <int>  default 500
         -q, --quality-threshold <float>  default 10.0
         -e, --error-threshold <float>    default 0.3
-                                   (the three long forms also as
+                                   (these three, --cudapoa-batches
+                                   and --cudaaligner-batches also as
                                    --window-length=<int> etc.)
         -T, --no-trimming          do not trim the consensus windows
         -m, --match <int>          default 3
@@ -72,10 +73,13 @@ def parse_args(argv):
                   "-g": ("gap", int), "--gap": ("gap", int),
                   "-t": ("threads", int), "--threads": ("threads", int),
                   "--cudaaligner-batches": ("cuda_aligner_batches", int),
+                  "--cudapoa-batches": ("cuda_poa_batches", int),
                   "--device": ("device", str)}
-    # long options that also take their value after "="
+    # long options that also take their value after "=" (the option
+    # with an optional value, --cudapoa-batches, only there)
     eq_opts = ("--window-length", "--quality-threshold",
-               "--error-threshold")
+               "--error-threshold", "--cudapoa-batches",
+               "--cudaaligner-batches")
     positionals = []
     i, n = 0, len(argv)
     while i < n:
@@ -84,7 +88,7 @@ def parse_args(argv):
         if eq and name in eq_opts:
             key, conv = value_opts[name]
             opts[key] = conv(value)
-        elif a in value_opts:
+        elif a in value_opts and a != "--cudapoa-batches":
             key, conv = value_opts[a]
             i += 1
             if i >= n:

@@ -9,7 +9,11 @@ seam is the reference's (src/polisher.hpp:55,74): the CUDA subclass
 (racon_tpu_torch.cuda.polisher) overrides
 ``find_overlap_breaking_points`` to run the align kernels and
 ``generate_consensuses`` to run the POA kernel, with the CPU engines for
-whatever the kernels leave.  Stage walls land in ``stage_walls``.
+whatever the kernels leave.  A third hook, ``_notify_overlap_done``,
+fires once per overlap as its breaking points exist; the subclass's
+streaming pipeline routes the overlap's fragments into windows created
+before the align stage (``_create_windows``), and ``_build_windows``
+then routes only what that left.  Stage walls land in ``stage_walls``.
 """
 
 from __future__ import annotations
@@ -21,6 +25,7 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
+from racon_tpu_torch.core import overlap as overlap_mod
 from racon_tpu_torch.core.overlap import InvalidInputError, Overlap
 from racon_tpu_torch.core.sequence import Sequence
 from racon_tpu_torch.core.window import Window, WindowType
@@ -89,6 +94,11 @@ class Polisher:
         self.windows: List[Window] = []
         self.targets_coverages: List[int] = []
         self.window_type = WindowType.TGS
+        self._targets_size = 0
+        # first window id of each target (``_create_windows``)
+        self._first_window_id: List[int] = []
+        # set when the streaming pipeline counted coverage already
+        self._coverage_counted = False
         self.stage_walls: Dict[str, float] = {}
         self.dummy_quality = b"!" * window_length
         self.engine = cpu.PoaEngine(match, mismatch, gap)
@@ -116,6 +126,7 @@ class Polisher:
         targets_size = len(self.sequences)
         if targets_size == 0:
             raise InvalidInputError("empty target sequences set!")
+        self._targets_size = targets_size
 
         # names (PAF, SAM) and 0-based file ids (MHAP): id_to_id keys
         # are id << 1 | 1 for targets, id << 1 | 0 for reads
@@ -269,10 +280,36 @@ class Polisher:
     # breaking points (reference: src/polisher.cpp:461-483)
     # ------------------------------------------------------------------
 
+    def _batch_decode_breaking_points(self,
+                                      overlaps: List[Overlap]) -> None:
+        """Decode the breaking points of every overlap that already
+        carries ``cigar_runs`` (SAM input, the device ladder's pairs)
+        in slab-sized vectorized batches over the pool; ``work(o)``
+        then finds its points set.  A slab that fails is left
+        undecoded, so the per-overlap path raises for the record at
+        fault alone."""
+        slabs = overlap_mod.iter_decode_slabs(overlaps)
+
+        def one(slab):
+            try:
+                overlap_mod.decode_breaking_points_batch(
+                    slab, self.window_length)
+            except Exception:
+                pass
+
+        if len(slabs) > 1 and self.num_threads > 1:
+            list(self._pool.map(one, slabs))
+        else:
+            for slab in slabs:
+                one(slab)
+
     def find_overlap_breaking_points(self, overlaps: List[Overlap]) -> None:
+        self._batch_decode_breaking_points(overlaps)
+
         def work(o: Overlap) -> None:
             o.find_breaking_points(self.sequences, self.window_length,
                                    aligner=cpu.align)
+            self._notify_overlap_done(o)
 
         self._run_pooled([(work, (o,)) for o in overlaps],
                          "[racon_tpu_torch::Polisher::initialize] "
@@ -296,12 +333,23 @@ class Polisher:
             self.logger.log(done_message)
         return results
 
+    def _notify_overlap_done(self, o: Overlap) -> None:
+        """Per-overlap completion hook, fired (possibly from a pool
+        thread) once ``o.breaking_points`` exists.  The base pipeline
+        does nothing; the CUDA polisher's streaming pipeline routes the
+        overlap's fragments through its window ledger."""
+
     # ------------------------------------------------------------------
     # windowing (reference: src/polisher.cpp:383-456)
     # ------------------------------------------------------------------
 
-    def _build_windows(self, targets_size: int, window_type: WindowType,
-                       overlaps: List[Overlap]) -> None:
+    def _create_windows(self, targets_size: int,
+                        window_type: WindowType) -> None:
+        """Backbone windows of every target.  Idempotent: the streaming
+        pipeline creates them before the align stage, the staged path
+        here."""
+        if self.windows:
+            return
         w = self.window_length
         first_window_id = [0] * (targets_size + 1)
         for i in range(targets_size):
@@ -316,46 +364,69 @@ class Polisher:
                                            data[j:j + length], q))
                 k += 1
             first_window_id[i + 1] = first_window_id[i] + k
+        self._first_window_id = first_window_id
         self.targets_coverages = [0] * targets_size
 
+    def _overlap_window_fragments(self, o: Overlap):
+        """Yield ``(window_id, data, quality, begin, end)`` for every
+        breaking-point pair of ``o`` that passes the length and quality
+        filters: the staged routing rule, per overlap, so that the
+        streaming seam can route overlaps as they complete.  The caller
+        clears ``o.breaking_points``."""
+        points = o.breaking_points
+        if points is None or len(points) == 0:
+            return
+        w = self.window_length
+        sequence = self.sequences[o.q_id]
+        # reverse_quality exists iff transmute materialised it
+        has_quality = bool(sequence.quality) or \
+            bool(sequence._reverse_quality)
+        quality_src = (sequence.reverse_quality if o.strand
+                       else sequence.quality)
+        data_src = (sequence.reverse_complement if o.strand
+                    else sequence.data)
+        pts = np.asarray(points, dtype=np.int64)
+        t_first, q_first = pts[0::2, 0], pts[0::2, 1]
+        t_last, q_last = pts[1::2, 0], pts[1::2, 1]
+        keep = (q_last - q_first) >= 0.02 * w
+        if has_quality and quality_src:
+            idx = np.flatnonzero(keep)
+            if idx.size:
+                # mean fragment quality from prefix sums (exact: sums
+                # stay far below 2^53)
+                prefix = np.concatenate(([0], np.cumsum(
+                    np.frombuffer(quality_src, np.uint8)
+                    .astype(np.int64))))
+                total = prefix[q_last[idx]] - prefix[q_first[idx]]
+                count = q_last[idx] - q_first[idx]
+                keep[idx] = ~((total / count - 33)
+                              < self.quality_threshold)
+        first_wid = self._first_window_id[o.t_id]
+        for j in np.flatnonzero(keep).tolist():
+            tf, tl = int(t_first[j]), int(t_last[j])
+            qf, ql = int(q_first[j]), int(q_last[j])
+            window_start = (tf // w) * w
+            yield (first_wid + tf // w, data_src[qf:ql],
+                   quality_src[qf:ql] if quality_src else None,
+                   tf - window_start, tl - window_start - 1)
+
+    def _build_windows(self, targets_size: int, window_type: WindowType,
+                       overlaps: List[Overlap]) -> None:
+        """Create the windows (unless the streaming pipeline did) and
+        route every overlap it has not routed; coverage is counted
+        here unless the pipeline counted it."""
+        self._create_windows(targets_size, window_type)
         for o in overlaps:
-            self.targets_coverages[o.t_id] += 1
-            points = o.breaking_points
-            o.breaking_points = None
-            if points is None or len(points) == 0:
+            if not self._coverage_counted:
+                self.targets_coverages[o.t_id] += 1
+            if o.breaking_points is None or len(o.breaking_points) == 0:
+                # routed by the streaming seam (the ROUTED sentinel) or
+                # no points at all
                 continue
-            sequence = self.sequences[o.q_id]
-            # reverse_quality exists iff transmute materialised it
-            has_quality = bool(sequence.quality) or \
-                bool(sequence._reverse_quality)
-            quality_src = (sequence.reverse_quality if o.strand
-                           else sequence.quality)
-            data_src = (sequence.reverse_complement if o.strand
-                        else sequence.data)
-            pts = np.asarray(points, dtype=np.int64)
-            t_first, q_first = pts[0::2, 0], pts[0::2, 1]
-            t_last, q_last = pts[1::2, 0], pts[1::2, 1]
-            keep = (q_last - q_first) >= 0.02 * w
-            if has_quality and quality_src:
-                idx = np.flatnonzero(keep)
-                if idx.size:
-                    # mean fragment quality from prefix sums (exact:
-                    # sums stay far below 2^53)
-                    prefix = np.concatenate(([0], np.cumsum(
-                        np.frombuffer(quality_src, np.uint8)
-                        .astype(np.int64))))
-                    total = prefix[q_last[idx]] - prefix[q_first[idx]]
-                    count = q_last[idx] - q_first[idx]
-                    keep[idx] = ~((total / count - 33)
-                                  < self.quality_threshold)
-            for j in np.flatnonzero(keep).tolist():
-                tf, tl = int(t_first[j]), int(t_last[j])
-                qf, ql = int(q_first[j]), int(q_last[j])
-                window_start = (tf // w) * w
-                self.windows[first_window_id[o.t_id] + tf // w].add_layer(
-                    data_src[qf:ql],
-                    quality_src[qf:ql] if quality_src else None,
-                    tf - window_start, tl - window_start - 1)
+            for wid, data, quality, begin, end in \
+                    self._overlap_window_fragments(o):
+                self.windows[wid].add_layer(data, quality, begin, end)
+            o.breaking_points = None
 
     # ------------------------------------------------------------------
     # consensus + polish (reference: src/polisher.cpp:485-547)

@@ -15,12 +15,112 @@ from __future__ import annotations
 
 import enum
 import sys
-from typing import List, Optional, Tuple
+import threading
+from collections import deque
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
 
 
 class WindowType(enum.Enum):
     NGS = 0   # short accurate reads (mean length <= 1000)
     TGS = 1   # long noisy reads
+
+
+class WindowLedger:
+    """Per-window completion accounting for the streaming pipeline.
+
+    A window can enter POA as soon as every overlap that could route a
+    layer into it has its breaking points.  Each overlap registers the
+    window-id range its target span covers (``register``); its
+    completion decrements the range (``complete``), and windows whose
+    pending count reaches zero come back with their stashed fragments.
+
+    Determinism: fragments are stashed with the overlap's ordinal (its
+    index in the filtered overlap list) and a window's stash drains
+    sorted by ordinal, so a window's layer order is the overlap-list
+    order, as in the staged ``Polisher._build_windows``, whatever the
+    order in which alignments finish.  One lock guards all state;
+    ``cond`` also wakes the speculative POA consumer
+    (racon_tpu_torch/cuda/polisher.py).
+    """
+
+    def __init__(self, n_windows: int):
+        self.pending = np.zeros(n_windows, np.int32)
+        self.cond = threading.Condition()
+        # id(overlap) -> (ordinal, lo, hi); popped on completion, so a
+        # second completion of the same overlap is a no-op
+        self._reg: Dict[int, Tuple[int, int, int]] = {}
+        # window id -> [(ordinal, window id, *fragment), ...]
+        self._stash: Dict[int, list] = {}
+        self.ready: deque = deque()
+        #: deepest the ready queue ever got (the consumer's backlog)
+        self.ready_high_water = 0
+        self._sealed = False
+        self.n_completed = 0
+
+    def register(self, key: int, ordinal: int, lo: int, hi: int) -> None:
+        """Mark windows [lo, hi] as pending one more overlap."""
+        with self.cond:
+            if self._sealed:
+                raise RuntimeError("WindowLedger sealed")
+            self._reg[key] = (ordinal, lo, hi)
+            self.pending[lo:hi + 1] += 1
+
+    def seal(self) -> None:
+        """End of registration."""
+        with self.cond:
+            self._sealed = True
+
+    def complete(self, key: int, frags) -> List[Tuple[int, list]]:
+        """Record one overlap's completion with its routed fragments
+        ``(ordinal, window_id, *fragment)``.  Returns
+        ``[(window_id, ordinal_sorted_fragments), ...]`` for every
+        window that became fully routed; unknown or repeated keys are
+        no-ops (the fall-through pass notifies every overlap)."""
+        with self.cond:
+            reg = self._reg.pop(key, None)
+            if reg is None:
+                return []
+            _, lo, hi = reg
+            for fr in frags:
+                self._stash.setdefault(fr[1], []).append(fr)
+            seg = self.pending[lo:hi + 1]
+            seg -= 1
+            self.n_completed += 1
+            newly = (lo + np.flatnonzero(seg == 0)).tolist()
+            return [(wid, sorted(self._stash.pop(wid, []),
+                                 key=lambda fr: fr[0]))
+                    for wid in newly]
+
+    def remaining(self) -> List[int]:
+        """Registered overlap keys not yet completed, ordinal order."""
+        with self.cond:
+            return [k for k, _ in sorted(self._reg.items(),
+                                         key=lambda kv: kv[1][0])]
+
+    def push_ready(self, wids: List[int]) -> None:
+        """Publish fully routed windows to the consumer and wake it."""
+        if not wids:
+            return
+        with self.cond:
+            self.ready.extend(wids)
+            self.ready_high_water = max(self.ready_high_water,
+                                        len(self.ready))
+            self.cond.notify_all()
+
+    def pop_ready(self, cap: int, min_n: int = 1) -> List[int]:
+        """Take up to ``cap`` ready windows, or none when fewer than
+        ``min_n`` are queued."""
+        with self.cond:
+            if len(self.ready) < max(1, min_n):
+                return []
+            n = min(cap, len(self.ready))
+            return [self.ready.popleft() for _ in range(n)]
+
+    def n_ready(self) -> int:
+        with self.cond:
+            return len(self.ready)
 
 
 class Window:

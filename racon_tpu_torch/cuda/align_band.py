@@ -32,6 +32,7 @@ tensors and runs ``band_align_reference`` for CPU tensors.
 
 from __future__ import annotations
 
+import threading
 from typing import Tuple
 
 import numpy as np
@@ -53,6 +54,8 @@ CTR_SLOPE_MAX = 255
 
 #: kernel launches made by ``band_align`` (plain-version calls excluded)
 LAUNCHES = 0
+# guards the count: launches may come from several threads
+_LAUNCH_LOCK = threading.Lock()
 
 
 def n_ctr(lq: int) -> int:
@@ -270,7 +273,8 @@ def band_align(q, t, ql, tl, ctr, *, wb: int, warps: int = 0):
         raise RuntimeError(f"align_band kernel launch failed: "
                            f"{build.error_string('align_band', err)} "
                            f"({err})")
-    LAUNCHES += 1
+    with _LAUNCH_LOCK:
+        LAUNCHES += 1
     return tape, meta
 
 

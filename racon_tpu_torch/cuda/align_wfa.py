@@ -32,6 +32,7 @@ along the JAX package's 32-row match words (``wfa_match_words``).
 
 from __future__ import annotations
 
+import threading
 from typing import Tuple
 
 import numpy as np
@@ -51,6 +52,8 @@ SYNC_WORDS = 4               # kernel's per-block exchange words (kSync)
 
 #: kernel launches made by ``wfa_align`` (plain-version calls excluded)
 LAUNCHES = 0
+# guards the count: launches may come from several threads
+_LAUNCH_LOCK = threading.Lock()
 
 
 def wfa_wd(emax: int) -> int:
@@ -170,7 +173,8 @@ def wfa_align(q, t, ql, tl, *, emax: int, lmax: int):
     if err != 0:
         raise RuntimeError(f"align_wfa kernel launch failed: "
                            f"{build.error_string('align_wfa', err)} ({err})")
-    LAUNCHES += 1
+    with _LAUNCH_LOCK:
+        LAUNCHES += 1
     return tape, meta
 
 

@@ -31,6 +31,7 @@ arithmetic written out, not a fast path.
 
 from __future__ import annotations
 
+import threading
 from typing import List, Tuple
 
 import numpy as np
@@ -62,6 +63,8 @@ SMEM_MAX = 232_448    # dynamic shared memory one block may opt in to
 
 #: kernel launches made by ``poa_full`` (plain-version calls excluded)
 LAUNCHES = 0
+# guards the count: launches may come from several threads
+_LAUNCH_LOCK = threading.Lock()
 
 
 def band_width(lp: int, banded: bool = False) -> int:
@@ -254,7 +257,8 @@ def poa_full(seqs, wts, meta, nlay, bblen, *, v: int, lp: int, wb: int,
             raise RuntimeError(
                 f"poa_full kernel launch failed: "
                 f"{build.error_string('poa_full', err)} ({err})")
-        LAUNCHES += 1
+        with _LAUNCH_LOCK:
+            LAUNCHES += 1
     return cons, mout
 
 

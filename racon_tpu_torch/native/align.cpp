@@ -317,9 +317,9 @@ int64_t rt_align(const char* q, int32_t qn, const char* t, int32_t tn,
     // int32 entries (D up to ~8k, comfortably above real ONT overlap
     // distances) -- the cap is PER CALL, so keep it modest: pool
     // threads align concurrently and each may grow toward it before
-    // falling back.  RACON_TPU_WFA_MAX_MB overrides.
+    // falling back.  RACON_TPU_TORCH_WFA_MAX_MB overrides.
     size_t max_mb = 256;
-    if (const char* env = std::getenv("RACON_TPU_WFA_MAX_MB")) {
+    if (const char* env = std::getenv("RACON_TPU_TORCH_WFA_MAX_MB")) {
         long v = std::atol(env);
         if (v > 0) max_mb = static_cast<size_t>(v);
     }
@@ -354,6 +354,107 @@ int64_t rt_align(const char* q, int32_t qn, const char* t, int32_t tn,
         if (k >= k_cap) return -2;
         k = std::min(k * 2, k_cap);
     }
+}
+
+// CIGAR string -> runs ("MIDNSHP=X" code indices), with the semantics of
+// a findall of (\d+)([MIDNSHP=X]): every digit run directly followed by
+// an op letter is one run, anything else is skipped.  Returns the number
+// of runs written, or -1 if cap is too small.
+int64_t rt_cigar_runs(const char* cigar, int64_t n, int64_t* lengths,
+                      int64_t* codes, int64_t cap) {
+    static const char kOps[] = "MIDNSHP=X";
+    int64_t out = 0;
+    int64_t p = 0;
+    while (p < n) {
+        if (cigar[p] < '0' || cigar[p] > '9') { ++p; continue; }
+        int64_t v = 0;
+        while (p < n && cigar[p] >= '0' && cigar[p] <= '9') {
+            v = v * 10 + (cigar[p] - '0');
+            ++p;
+        }
+        if (p == n) break;
+        const char* op = std::strchr(kOps, cigar[p]);
+        if (op == nullptr || *op == '\0') continue;
+        if (out == cap) return -1;
+        lengths[out] = v;
+        codes[out] = op - kOps;
+        ++out;
+        ++p;
+    }
+    return out;
+}
+
+// Window breaking points of n alignments (reference:
+// src/overlap.cpp:226-292).  Alignment i is the runs [run_off[i],
+// run_off[i + 1]) of (lengths, codes) in "MIDNSHP=X" indices: M = X
+// advance both sequences, I the query, D and N the target, S H P
+// neither.  Its first target column is t_begin[i] and its first query
+// column q_start[i].  A column that advances the target to t with
+// (t + 1) % w == 0 and t < t_end - 1, or to t_end - 1, closes a segment;
+// for every segment that holds a match column, the (t, q) of its first
+// match and one past its last match are written as two rows of pts
+// (int64 pairs) from row 2 * seg_off[i] on, and n_out[i] counts the
+// rows.  Match columns after the last boundary belong to no segment.
+// Returns 0, -1 if alignment i has more segments than seg_off[i + 1] -
+// seg_off[i], or -2 on a code outside 0..8.
+int64_t rt_breaking_points(int64_t n, const int64_t* run_off,
+                           const int64_t* lengths, const int64_t* codes,
+                           const int64_t* t_begin, const int64_t* t_end,
+                           const int64_t* q_start, int64_t w,
+                           const int64_t* seg_off, int64_t* pts,
+                           int64_t* n_out) {
+    //                             M  I  D  N  S  H  P  =  X
+    static const bool kAdvT[9] = {1, 0, 1, 1, 0, 0, 0, 1, 1};
+    static const bool kAdvQ[9] = {1, 1, 0, 0, 0, 0, 0, 1, 1};
+    for (int64_t i = 0; i < n; ++i) {
+        int64_t t = t_begin[i] - 1;     // target column last advanced to
+        int64_t q = q_start[i] - 1;     // query column last advanced to
+        const int64_t last_t = t_end[i] - 1;
+        int64_t seg = seg_off[i];
+        bool has = false;               // the open segment holds a match
+        int64_t ft = 0, fq = 0, lt = 0, lq = 0;
+        n_out[i] = 0;
+        for (int64_t r = run_off[i]; r < run_off[i + 1]; ++r) {
+            const int64_t c = codes[r];
+            if (c < 0 || c > 8) return -2;
+            int64_t left = lengths[r];
+            if (!kAdvT[c]) {            // I, or S H P
+                if (kAdvQ[c]) q += left;
+                continue;
+            }
+            const bool match = kAdvQ[c];
+            // the run's columns reach targets t + 1 .. t + left: walk
+            // them boundary to boundary
+            while (left > 0) {
+                const int64_t t0 = t + 1;
+                // first target >= t0 with (b + 1) % w == 0; the last
+                // column closes a segment too
+                int64_t b = ((t0 + w) / w) * w - 1;
+                if (b >= last_t) b = last_t;
+                const bool closes = b >= t0 && b - t0 < left;
+                const int64_t take = closes ? b - t0 + 1 : left;
+                if (match) {
+                    if (!has) { ft = t0; fq = q + 1; has = true; }
+                    lt = t0 + take - 1;
+                    lq = q + take;
+                    q += take;
+                }
+                t += take;
+                left -= take;
+                if (closes && has) {
+                    if (seg >= seg_off[i + 1]) return -1;
+                    pts[4 * seg + 0] = ft;
+                    pts[4 * seg + 1] = fq;
+                    pts[4 * seg + 2] = lt + 1;
+                    pts[4 * seg + 3] = lq + 1;
+                    ++seg;
+                    n_out[i] += 2;
+                }
+                if (closes) has = false;
+            }
+        }
+    }
+    return 0;
 }
 
 }  // extern "C"

@@ -1,8 +1,10 @@
 """ctypes bindings to the native CPU compute engines.
 
 The shared library provides the edlib-equivalent global aligner (the
-breaking-point re-alignment of overlaps the card does not align) and the
-spoa-equivalent POA consensus engine (windows the CUDA kernel rejects).
+breaking-point re-alignment of overlaps the card does not align), the
+breaking-point walk over an alignment's runs and the CIGAR parse that
+feeds it, and the spoa-equivalent POA consensus engine (windows the
+CUDA kernel rejects).
 Calls release the GIL, so the polisher's thread pool runs them in
 parallel.
 
@@ -28,6 +30,7 @@ _SOURCES = ("align.cpp", "poa.cpp", "poa_graph.hpp", "Makefile")
 
 _lib = None
 _lib_lock = threading.Lock()
+_I64 = np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS")
 
 
 def _build_library() -> None:
@@ -77,6 +80,13 @@ def get_library() -> ctypes.CDLL:
             ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,  # m, x, g
             ctypes.c_char_p, ctypes.c_int64,        # out, out_cap
             ctypes.POINTER(ctypes.c_int32)]         # status
+        lib.rt_cigar_runs.restype = ctypes.c_int64
+        lib.rt_cigar_runs.argtypes = [
+            ctypes.c_char_p, ctypes.c_int64,
+            _I64, _I64, ctypes.c_int64]
+        lib.rt_breaking_points.restype = ctypes.c_int64
+        lib.rt_breaking_points.argtypes = [ctypes.c_int64] + [_I64] * 6 + [
+            ctypes.c_int64, _I64, _I64, _I64]
         _lib = lib
         return _lib
 
@@ -106,6 +116,58 @@ def align_with_distance(query: bytes, target: bytes) -> Tuple[str, int]:
             f"[racon_tpu_torch::align] native aligner failed (code {n}) "
             f"on pair ({len(query)} x {len(target)})")
     return buf.raw[:n].decode(), int(dist.value)
+
+
+def cigar_runs(cigar: str) -> Tuple[np.ndarray, np.ndarray]:
+    """A CIGAR string's (lengths, codes) runs in "MIDNSHP=X" indices,
+    parsed natively; anything that is not a count followed by an op
+    letter is skipped."""
+    raw = cigar.encode()
+    cap = len(raw) // 2 + 1
+    lengths = np.empty(cap, np.int64)
+    codes = np.empty(cap, np.int64)
+    n = get_library().rt_cigar_runs(raw, len(raw), lengths, codes, cap)
+    return lengths[:n], codes[:n]
+
+
+def breaking_points(runs, t_begin: np.ndarray, t_end: np.ndarray,
+                    q_start: np.ndarray, window_length: int) -> list:
+    """Window breaking points of a batch of alignments in one native
+    call, which releases the GIL: ``runs[i]`` is alignment i's (lengths,
+    codes) in "MIDNSHP=X" indices, its target span starts at
+    ``t_begin[i]`` and ends at ``t_end[i]``, its query at
+    ``q_start[i]``.  Returns a (2k, 2) int64 array of (target, query)
+    points per alignment: the first match of each window segment and
+    one past its last (Overlap.find_breaking_points_from_cigar)."""
+    n = len(runs)
+    if n == 0:
+        return []
+    lengths = [np.ascontiguousarray(r[0], np.int64) for r in runs]
+    run_off = np.zeros(n + 1, np.int64)
+    np.cumsum([a.size for a in lengths], out=run_off[1:])
+    all_l = np.concatenate(lengths)
+    all_c = np.concatenate([np.ascontiguousarray(r[1], np.int64)
+                            for r in runs])
+    t_begin = np.ascontiguousarray(t_begin, np.int64)
+    t_end = np.ascontiguousarray(t_end, np.int64)
+    q_start = np.ascontiguousarray(q_start, np.int64)
+    # a segment ends at a window boundary or at the span's last column
+    seg_off = np.zeros(n + 1, np.int64)
+    np.cumsum(np.maximum(t_end - t_begin, 0) // window_length + 2,
+              out=seg_off[1:])
+    pts = np.empty((2 * int(seg_off[-1]), 2), np.int64)
+    n_out = np.empty(n, np.int64)
+    rc = get_library().rt_breaking_points(
+        n, run_off, all_l, all_c, t_begin, t_end, q_start, window_length,
+        seg_off, pts, n_out)
+    if rc == -2:
+        raise ValueError("[racon_tpu_torch::breaking_points] CIGAR op "
+                         "code outside MIDNSHP=X")
+    if rc != 0:
+        raise RuntimeError(f"[racon_tpu_torch::breaking_points] native "
+                           f"decode failed (code {rc})")
+    lo = (2 * seg_off[:-1]).tolist()
+    return [pts[a:a + k] for a, k in zip(lo, n_out.tolist())]
 
 
 class PoaEngine:

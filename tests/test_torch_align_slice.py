@@ -10,10 +10,12 @@ import os
 
 import numpy as np
 import pytest
+import torch
 
 from racon_tpu.core import polisher as jax_polisher
 from racon_tpu.tools import simulate
 from racon_tpu_torch import cli
+from racon_tpu_torch.core import overlap as overlap_mod
 from racon_tpu_torch.core.overlap import Overlap
 from racon_tpu_torch.core.polisher import PolisherType, create_polisher
 from racon_tpu_torch.cuda import aligner as al
@@ -30,8 +32,27 @@ def _read_fasta(path):
         return b"".join(l.strip() for l in fh if not l.startswith(b">"))
 
 
+@pytest.fixture(scope="module", autouse=True)
+def device_only_env():
+    """This file pins the all-device path (every eligible overlap on the
+    ladder, every eligible window on the POA kernel): both splits off,
+    and no calibration store read or written.  The plain versions'
+    small tensor ops run on one intra-op thread: beside other test
+    processes, a team of spinning threads per op slows them tenfold."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setenv("RACON_TPU_TORCH_ALIGN_DEVICE_ONLY", "1")
+            mp.setenv("RACON_TPU_TORCH_POA_DEVICE_ONLY", "1")
+            mp.setenv("RACON_TPU_TORCH_CACHE_DIR", "")
+            yield
+    finally:
+        torch.set_num_threads(threads)
+
+
 @pytest.fixture(scope="module")
-def sim(tmp_path_factory):
+def sim(tmp_path_factory, device_only_env):
     out = tmp_path_factory.mktemp("align_slice_sim")
     paths = simulate.simulate(str(out), genome_len=10_000, coverage=10,
                               read_len=2_000, seed=5, ont=True)
@@ -144,13 +165,21 @@ def test_ladder_wfa_reject_band_and_measured_retry(tmp_path, monkeypatch):
     monkeypatch.setattr(CudaPolisher, "BAND_RUNGS", (1024, 2048))
     seen = []
     orig = Overlap.find_breaking_points_from_cigar
+    orig_slab = overlap_mod._decode_bp_slab
 
     def record(self, window_length):
         if self.cigar_runs is not None:
             seen.append((self, [a.copy() for a in self.cigar_runs]))
         return orig(self, window_length)
 
+    def record_slab(overlaps, window_length):
+        # the batched decode of the base pass takes short pairs
+        seen.extend((o, [a.copy() for a in o.cigar_runs])
+                    for o in overlaps)
+        return orig_slab(overlaps, window_length)
+
     monkeypatch.setattr(Overlap, "find_breaking_points_from_cigar", record)
+    monkeypatch.setattr(overlap_mod, "_decode_bp_slab", record_slab)
     paths = _write_set(str(tmp_path), np.random.default_rng(3))
     pol = create_polisher(*paths, PolisherType.kC, 500, 10.0, 0.3, True,
                           5, -4, -8, 2, cuda_aligner_batches=1,

@@ -30,8 +30,27 @@ def _records(buf: bytes):
     return [(lines[i][1:], lines[i + 1]) for i in range(0, len(lines) - 1, 2)]
 
 
+@pytest.fixture(scope="module", autouse=True)
+def device_only_env():
+    """This file pins the all-device path (every eligible overlap on the
+    ladder, every eligible window on the POA kernel): both splits off,
+    and no calibration store read or written.  The plain versions'
+    small tensor ops run on one intra-op thread: beside other test
+    processes, a team of spinning threads per op slows them tenfold."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setenv("RACON_TPU_TORCH_ALIGN_DEVICE_ONLY", "1")
+            mp.setenv("RACON_TPU_TORCH_POA_DEVICE_ONLY", "1")
+            mp.setenv("RACON_TPU_TORCH_CACHE_DIR", "")
+            yield
+    finally:
+        torch.set_num_threads(threads)
+
+
 @pytest.fixture(scope="module")
-def polished(tmp_path_factory):
+def polished(tmp_path_factory, device_only_env):
     out = tmp_path_factory.mktemp("slice_sim")
     paths = simulate.simulate(str(out), genome_len=10_000, coverage=10,
                               read_len=2_000, seed=5, ont=True)
