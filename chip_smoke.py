@@ -2,7 +2,7 @@
 """On-card smoke run of the PyTorch/CUDA port (racon_tpu_torch).
 
     python3 chip_smoke.py [--genome-len N] [--threads T] [--work DIR]
-                          [--only band|wfa|default]
+                          [--only band|wfa|default|traced] [--keep DIR]
 
 Needs one CUDA card.  Phases, one JSON line each:
 
@@ -62,11 +62,29 @@ Needs one CUDA card.  Phases, one JSON line each:
                 POA rejects <= 10% of eligible windows, polished
                 distance to truth <= draft distance / 10; with every
                 kernel's summed phase cycles and main-path bound;
+   traced       the staged polish again with --trace and --metrics-json:
+                the FASTA must equal phase 6's; per engine (poa,
+                align_wfa, align_band) the report's device busy, idle,
+                util and dispatches, which must equal the engine's
+                launches, and the summed device-lane intervals of the
+                trace, which must agree with the polisher's CUDA-event
+                kernel ms within 1% or 0.1 ms; every lane span inside
+                the run span and between its launch's and its
+                collect's host times (1 ms + 100 ppm); each engine's and
+                all engines' idle share of the racon_tpu_torch.run span
+                (1 - union of the lane intervals / the span); the
+                traced wall against phase 6's;
+   long_cap     a 20,000-base pair among 12 short ones, the align stage
+                on the card, at the default cap (pair on the CPU) and at
+                RACON_TPU_TORCH_MAX_ALIGN_DIM=32768 (pair on a band
+                rung): identical FASTA, the pair certified on the card;
    polish_default  the same CLI at the port's defaults (streaming
                 pipeline, device/CPU splits of both stages), twice, in
                 a fresh calibration store under the work directory:
                 the first run at the built-in rates stores generation
-                1, the second reads it; a third run as the second but
+                1, the second reads it and is traced (a ``traced`` line
+                with the same lane checks and idle shares); a third run
+                as the second but
                 with the align stage all on the card
                 (RACON_TPU_TORCH_ALIGN_DEVICE_ONLY=1), which splits the
                 default path's wall between its parts.  Each: walls,
@@ -76,8 +94,8 @@ Needs one CUDA card.  Phases, one JSON line each:
                 stored rates and the distance (<= draft / 10); every
                 kernel launched;
    pipeline_bytes  the first 1 Mb of the set at the second run's
-                stored rates, pinned: pipeline off, then on; the FASTA
-                must be byte-identical;
+                stored rates, pinned: pipeline off, then on, then on and
+                traced; the FASTA must be byte-identical;
 7. native_compare  200 region windows on the POA kernel and on the
                 native CPU engine: summed edit distance between the two;
 8. kernels      every ported kernel with its launches in phase 6.
@@ -87,8 +105,11 @@ failure raises and the script exits non-zero without a result line.
 ``--only band`` (``--only wfa``) runs phases 1-3, align_check and
 band_card (wfa_card), then exits 0 without the result line (a few
 minutes: a trial of one align kernel); ``--only default`` runs phases
-1-3, polish_default and pipeline_bytes the same way.  The calibration
-store is off (``RACON_TPU_TORCH_CACHE_DIR=""``) outside polish_default.
+1-3, polish_default and pipeline_bytes the same way, ``--only traced``
+phases 1-3, the staged polish, traced and long_cap.  ``--keep DIR`` copies the
+traced runs' traces and reports to DIR (open a trace in Perfetto).  The
+calibration store is off (``RACON_TPU_TORCH_CACHE_DIR=""``) outside
+polish_default.
 """
 
 from __future__ import annotations
@@ -1093,10 +1114,204 @@ def counted_polish(cli, argv, out_path):
                             "align_band": ab.LAUNCHES}
 
 
+#: the staged, all-device path of phase 6 (and of the traced phase)
+STAGED_ENV = {"RACON_TPU_TORCH_PIPELINE": "0",
+              "RACON_TPU_TORCH_ALIGN_DEVICE_ONLY": "1",
+              "RACON_TPU_TORCH_POA_DEVICE_ONLY": "1"}
+#: device_util engine -> launch counter
+ENGINE_KERNEL = {"poa": "poa_full", "align_wfa": "align_wfa",
+                 "align_band": "align_band"}
+
+
+def trace_args(work, tag) -> tuple:
+    """(argv flags, trace path, report path) of a traced run."""
+    tpath = os.path.join(work, f"{tag}.trace.json")
+    mpath = os.path.join(work, f"{tag}.metrics.json")
+    return ["--trace", tpath, "--metrics-json", mpath], tpath, mpath
+
+
+def union_us(intervals) -> float:
+    """Length of the union of ``(start, end)`` intervals."""
+    total, end = 0.0, None
+    for a, b in sorted(intervals):
+        if end is None or a > end:
+            total += b - a
+            end = b
+        elif b > end:
+            total += b - end
+            end = b
+    return total
+
+
+def lane_stats(pol, launches, tpath, mpath) -> dict:
+    """Device lanes of a traced run: per engine, the report's
+    ``device_util`` (busy, idle, util, dispatches) beside the engine's
+    launches, the summed lengths of its device-lane spans beside the
+    polisher's CUDA-event kernel ms, and its idle share of the run;
+    then the all-engine idle share: 1 - union of every device-lane
+    interval / the ``racon_tpu_torch.run`` span, and each stage span's
+    wall beside the device time inside it.  The mapping of the CUDA
+    events onto the host clock is held to the host: every device-lane
+    span must lie inside the run span and between the host times of its
+    launch and of its collect (``launch_ts``, ``collect_ts``), within
+    1 ms plus 100 ppm of the run span for the two clocks' drift.
+    Raises when an engine is missing, its dispatches differ from its
+    launches, its lanes and kernel ms differ by more than 1% and
+    0.1 ms, or a span breaks those bounds."""
+    with open(tpath) as fh:
+        events = json.load(fh)["traceEvents"]
+    with open(mpath) as fh:
+        report = json.load(fh)
+    kernel_ms = {**pol.align_kernel_ms, "poa": pol.poa_engine.kernel_ms}
+    lanes, run, stages, device = {}, None, {}, []
+    for ev in events:
+        if ev.get("ph") != "X":
+            continue
+        iv = (ev["ts"], ev["ts"] + ev["dur"])
+        if ev["name"] == "racon_tpu_torch.run":
+            run = iv
+        elif ev.get("cat") in ("stage", "device_stage"):
+            stages[ev["name"][len("racon_tpu_torch."):]] = iv
+        elif ev.get("cat") == "device":
+            eng = re.sub(r"\d+$", "", ev["name"][len("device."):])
+            lanes.setdefault(eng, []).append(iv)
+            device.append((iv, ev["args"]))
+    if run is None:
+        raise RuntimeError(f"{tpath}: no racon_tpu_torch.run span")
+    run_us = run[1] - run[0]
+    # how far a span reaches before its launch, past its collect and out
+    # of the run span (negative: inside, by that margin)
+    slack_us = 1e3 + 1e-4 * run_us
+    clock = {
+        "start_before_launch_us": max(a["launch_ts"] - s
+                                      for (s, _), a in device),
+        "end_after_collect_us": max(e - a["collect_ts"]
+                                    for (_, e), a in device),
+        "outside_run_us": max(max(run[0] - s, e - run[1])
+                              for (s, e), _ in device)}
+    clock = {k: round(v, 1) for k, v in clock.items()}
+    if max(clock.values()) > slack_us:
+        raise RuntimeError(f"device lanes off the host clock by more than "
+                           f"{slack_us:.0f} us: {clock}")
+    clock["slack_us"] = round(slack_us, 1)
+    util = report["device_util"]
+    if set(util) != set(ENGINE_KERNEL) or set(lanes) != set(ENGINE_KERNEL):
+        raise RuntimeError(f"device_util {sorted(util)} / lanes "
+                           f"{sorted(lanes)}: not the three engines")
+    engines = {}
+    for eng, u in util.items():
+        lane_ms = sum(b - a for a, b in lanes[eng]) / 1e3
+        e = engines[eng] = {
+            **u, "launches": launches[ENGINE_KERNEL[eng]],
+            "lane_ms": round(lane_ms, 3),
+            "kernel_ms": round(kernel_ms[eng], 3),
+            "run_idle_share": round(1 - union_us(lanes[eng]) / run_us, 6)}
+        if e["n_dispatches"] != e["launches"]:
+            raise RuntimeError(f"{eng}: {e['n_dispatches']} dispatches in "
+                               f"the device lane, {e['launches']} launches")
+        if abs(lane_ms - kernel_ms[eng]) > max(0.01 * kernel_ms[eng], 0.1):
+            raise RuntimeError(f"{eng}: device lanes {lane_ms:.3f} ms, "
+                               f"CUDA events {kernel_ms[eng]:.3f} ms")
+    every = [iv for ivs in lanes.values() for iv in ivs]
+    busy_us = union_us(every)
+
+    def inside(a, b):
+        return union_us([(max(x, a), min(y, b)) for x, y in every
+                         if y > a and x < b])
+
+    return {"run_span_s": round(run_us / 1e6, 3), "engines": engines,
+            "lane_clock": clock,
+            "all_engine_busy_s": round(busy_us / 1e6, 3),
+            "all_engine_idle_share": round(1 - busy_us / run_us, 6),
+            "stages": {name: {"wall_s": round((b - a) / 1e6, 3),
+                              "device_busy_s": round(inside(a, b) / 1e6, 3)}
+                       for name, (a, b) in sorted(stages.items(),
+                                                  key=lambda kv: kv[1])},
+            "trace_events": len(events),
+            "host": {k: round(v, 3) for k, v in
+                     report["run"]["counters"].items()
+                     if k.startswith("host.")}}
+
+
+def keep_files(keep, *paths) -> None:
+    """Copy a traced run's trace and report to ``keep`` (if given)."""
+    if keep:
+        os.makedirs(keep, exist_ok=True)
+        for p in paths:
+            shutil.copy(p, keep)
+
+
+def traced_phase(cli, work, argv, untraced_path, untraced_wall,
+                 keep=None) -> None:
+    """The staged polish again with --trace and --metrics-json: the
+    FASTA must equal the untraced run's; the device lanes (lane_stats)
+    and the traced wall beside the untraced one."""
+    flags, tpath, mpath = trace_args(work, "staged")
+    out_path = os.path.join(work, "traced.fasta")
+    with env_set(**STAGED_ENV):
+        pol, wall, launches = counted_polish(cli, argv[:-3] + flags
+                                             + argv[-3:], out_path)
+    same = read_bytes(out_path) == read_bytes(untraced_path)
+    stats = lane_stats(pol, launches, tpath, mpath)
+    keep_files(keep, tpath, mpath)
+    emit("traced", path="staged", identical=same, launches=launches,
+         wall_s=round(wall, 3), untraced_wall_s=round(untraced_wall, 3),
+         overhead=round(wall / untraced_wall - 1, 4),
+         stage_walls_s={k: round(v, 3) for k, v in pol.stage_walls.items()},
+         **stats)
+    if not same:
+        raise RuntimeError("the traced staged polish gave other FASTA")
+
+
+def long_cap_phase(cli, work, threads) -> None:
+    """The align length cap lifted (RACON_TPU_TORCH_MAX_ALIGN_DIM):
+    simulate.long_pair's set, a 20,000-base pair past the WFA kernel's
+    rows among 12 short ones, polished with the align stage all on the
+    card at the default cap (the long pair on the CPU aligner) and at
+    32,768 (the long pair on a band rung, the short ones on a WFA rung
+    of the same ladder).  The FASTA must be identical, and the band rung
+    must certify the long pair."""
+    from racon_tpu_torch.tools import simulate
+
+    paths = simulate.long_pair(os.path.join(work, "long_pair"))
+    argv = ["-t", str(threads), "-m", "5", "-x", "-4", "-g", "-8",
+            "--cudaaligner-batches", "1", *paths]
+    runs = {}
+    for cap in (None, "32768"):
+        out_path = os.path.join(work, f"long_pair.{cap}.fasta")
+        with env_set(RACON_TPU_TORCH_ALIGN_DEVICE_ONLY="1",
+                     RACON_TPU_TORCH_MAX_ALIGN_DIM=cap):
+            pol, wall, launches = counted_polish(cli, argv, out_path)
+        band = sum(r["certified"] for k, r in pol.align_rungs.items()
+                   if k.startswith("band"))
+        runs[cap or "default"] = {
+            "wall_s": round(wall, 3), "launches": launches,
+            "over_length": pol.align_over_length, "band_certified": band,
+            "fallthrough": pol.align_cpu_fallthrough,
+            "rungs": pol.align_rungs,
+            "kernel_ms": {k: round(v, 3)
+                          for k, v in pol.align_kernel_ms.items()},
+            "bytes": read_bytes(out_path)}
+    same = runs["default"].pop("bytes") == runs["32768"].pop("bytes")
+    emit("long_cap", identical=same, **runs)
+    want = {"default": (1, 0), "32768": (0, 1)}
+    got = {k: (r["over_length"], r["band_certified"])
+           for k, r in runs.items()}
+    if not same or got != want or runs["32768"]["launches"]["align_wfa"] < 1:
+        raise RuntimeError(f"long_cap: identical={same}, (over-length, "
+                           f"band-certified) {got}, want {want}")
+
+
+def read_bytes(path: str) -> bytes:
+    with open(path, "rb") as fh:
+        return fh.read()
+
+
 def default_path(cli, cpu, work, reads, paf, draft, truth, d_draft,
-                 threads) -> None:
-    """polish_default (twice, fresh calibration store) and
-    pipeline_bytes (pipeline off vs on at the stored rates, pinned)."""
+                 threads, keep=None) -> None:
+    """polish_default (twice, fresh calibration store; the second run
+    traced) and pipeline_bytes (pipeline off vs on, then on and traced,
+    at the stored rates, pinned)."""
     from racon_tpu_torch.cuda.polisher import CudaPolisher
 
     store = os.path.join(work, "calib")
@@ -1109,11 +1324,13 @@ def default_path(cli, cpu, work, reads, paf, draft, truth, d_draft,
     # split as in run 2, the align stage all on the card
     for run in (1, 2, 3):
         out_path = os.path.join(work, f"default{run}.fasta")
+        flags, tpath, mpath = trace_args(work, "default") if run == 2 \
+            else ([], None, None)
         with env_set(RACON_TPU_TORCH_CACHE_DIR=store, **{
                 **knobs, "RACON_TPU_TORCH_ALIGN_DEVICE_ONLY":
                     "1" if run == 3 else None}):
             pol, wall, launches = counted_polish(
-                cli, argv + [reads, paf, draft], out_path)
+                cli, argv + flags + [reads, paf, draft], out_path)
         if run < 3:
             with open(os.path.join(store, "calibration.json")) as fh:
                 doc = json.load(fh)
@@ -1155,6 +1372,11 @@ def default_path(cli, cpu, work, reads, paf, draft, truth, d_draft,
             if n <= 0:
                 raise RuntimeError(f"polish_default run {run} launched no "
                                    f"{name} kernel")
+        if run == 2:
+            stats = lane_stats(pol, launches, tpath, mpath)
+            keep_files(keep, tpath, mpath)
+            emit("traced", path="default", run=run, launches=launches,
+                 wall_s=round(wall, 3), **stats)
 
     # pipeline_bytes: the second run's stored rates, pinned
     (ent,) = doc.values()
@@ -1177,15 +1399,17 @@ def default_path(cli, cpu, work, reads, paf, draft, truth, d_draft,
     region = cut_region(os.path.dirname(reads),
                         os.path.join(work, "region_1mb"), region_bp)
     outs, runs = {}, {}
-    for mode in ("0", "1"):
-        out_path = os.path.join(work, f"pipeline{mode}.fasta")
-        with env_set(**{**knobs, **pins,
-                        "RACON_TPU_TORCH_PIPELINE": mode}):
-            pol, wall, launches = counted_polish(cli, argv + list(region),
-                                                 out_path)
-        with open(out_path, "rb") as fh:
-            outs[mode] = fh.read()
-        runs["on" if mode == "1" else "off"] = {
+    # the pipeline off, on, and on with tracing: the same bytes
+    for mode in ("off", "on", "on_traced"):
+        out_path = os.path.join(work, f"pipeline_{mode}.fasta")
+        flags = trace_args(work, "pipeline")[0] if mode == "on_traced" \
+            else []
+        with env_set(**{**knobs, **pins, "RACON_TPU_TORCH_PIPELINE":
+                        "0" if mode == "off" else "1"}):
+            pol, wall, launches = counted_polish(
+                cli, argv + flags + list(region), out_path)
+        outs[mode] = read_bytes(out_path)
+        runs[mode] = {
             "wall_s": round(wall, 3), "launches": launches,
             "align_cut": pol.align_split_detail.get("cut"),
             "poa_cut": pol.poa_split_detail.get("cut"),
@@ -1193,24 +1417,29 @@ def default_path(cli, cpu, work, reads, paf, draft, truth, d_draft,
             "poa_spec_wasted": pol.poa_spec_wasted,
             "pipeline_overlap_s": round(pol.pipeline_overlap_s, 3),
             "bytes": len(outs[mode])}
-    same = outs["0"] == outs["1"]
+    same = outs["off"] == outs["on"] == outs["on_traced"]
     emit("pipeline_bytes", region_bp=region_bp, pins=pins, runs=runs,
          identical=same)
     if not same:
-        raise RuntimeError("pipeline on and off gave different FASTA at "
-                           "pinned rates")
+        raise RuntimeError("pipeline off, on and on traced gave different "
+                           "FASTA at pinned rates")
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--genome-len", type=int, default=4_641_652)
     ap.add_argument("--threads", type=int, default=os.cpu_count() or 8)
-    ap.add_argument("--only", choices=["band", "wfa", "default"],
+    ap.add_argument("--only", choices=["band", "wfa", "default", "traced"],
                     default=None,
                     help="band / wfa: env, build, dataset, align_check and "
                     "band_card / wfa_card only; default: env, build, "
                     "dataset, polish_default and pipeline_bytes only; "
-                    "then exit 0 without the result line")
+                    "traced: env, build, dataset, the staged polish, "
+                    "traced and long_cap only; then exit 0 without the "
+                    "result line")
+    ap.add_argument("--keep", default=None,
+                    help="directory to copy the traced runs' traces and "
+                    "reports to (default: none kept)")
     ap.add_argument("--work", default=None,
                     help="dataset directory (default: tmp/chip_smoke in "
                     "the checkout, removed at the end)")
@@ -1281,13 +1510,24 @@ def main(argv=None) -> int:
     emit("dataset", genome_len=args.genome_len, simulate_s=round(t_sim, 3),
          region_windows=len(region_windows))
 
+    argv_polish = ["-t", str(args.threads), "-m", "5", "-x", "-4", "-g",
+                   "-8", "-c", "1", "--cudaaligner-batches", "1", reads,
+                   paf, draft]
+    out_path = os.path.join(work, "polished.fasta")
     if args.only in (None, "default"):
         truth = read_fasta(os.path.join(data, "genome.fasta"))
         d_draft = chunked_distance(read_fasta(draft), truth, cpu)
     if args.only is not None:
         if args.only == "default":
             default_path(cli, cpu, work, reads, paf, draft, truth, d_draft,
-                         args.threads)
+                         args.threads, args.keep)
+        elif args.only == "traced":
+            with env_set(**STAGED_ENV):
+                _, wall, launches = counted_polish(cli, argv_polish,
+                                                   out_path)
+            emit("polish", wall_s=round(wall, 3), launches=launches)
+            traced_phase(cli, work, argv_polish, out_path, wall, args.keep)
+            long_cap_phase(cli, work, args.threads)
         else:
             align_phases(region, dev, cpu, args.only)
         emit("partial", only=args.only,
@@ -1324,13 +1564,7 @@ def main(argv=None) -> int:
     acheck = align_phases(region, dev, cpu)
 
     # ---- polish (the main path, counted) --------------------------------
-    argv_polish = ["-t", str(args.threads), "-m", "5", "-x", "-4", "-g",
-                   "-8", "-c", "1", "--cudaaligner-batches", "1", reads,
-                   paf, draft]
-    out_path = os.path.join(work, "polished.fasta")
-    with env_set(RACON_TPU_TORCH_PIPELINE="0",
-                 RACON_TPU_TORCH_ALIGN_DEVICE_ONLY="1",
-                 RACON_TPU_TORCH_POA_DEVICE_ONLY="1"):
+    with env_set(**STAGED_ENV):
         polisher, wall, launches = counted_polish(cli, argv_polish,
                                                   out_path)
     eng = polisher.poa_engine
@@ -1350,11 +1584,13 @@ def main(argv=None) -> int:
          main_path_bound_ms={
              "poa_full": bound(0, 0, poa_ops(eng.cells, eng.pred_rows,
                                              eng.wb))[0],
-             "align_wfa": bound(0, 0, polisher.align_cells["align_wfa"]
+             "align_wfa": bound(0, 0,
+                                polisher.align_kernel_cells["align_wfa"]
                                 * OPS_PER_WFA_CELL)[0],
-             "align_band": bound(0, 0, polisher.align_cells["align_band"]
+             "align_band": bound(0, 0,
+                                 polisher.align_kernel_cells["align_band"]
                                  * OPS_PER_BAND_CELL)[0]},
-         align_cells=polisher.align_cells,
+         align_cells=polisher.align_kernel_cells,
          align_chunks=chunk_rates(polisher.align_chunks),
          align_eligible=polisher.align_eligible,
          align_probed=polisher.align_probed,
@@ -1381,9 +1617,13 @@ def main(argv=None) -> int:
         raise RuntimeError(f"polished distance {d_pol} > draft "
                            f"{d_draft} / 10")
 
+    # ---- traced (the staged path again, traced) -------------------------
+    traced_phase(cli, work, argv_polish, out_path, wall, args.keep)
+    long_cap_phase(cli, work, args.threads)
+
     # ---- polish_default, pipeline_bytes (the default path, counted) ------
     default_path(cli, cpu, work, reads, paf, draft, truth, d_draft,
-                 args.threads)
+                 args.threads, args.keep)
 
     # ---- native_compare (outside the counted run) -----------------------
     sample = [w for w in region_windows if engine.fits([w])][:200]

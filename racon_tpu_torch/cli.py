@@ -6,20 +6,26 @@ racon's optional-argument behaviour (bare -c means 1,
 src/main.cpp:111-123) and offloads the POA stage to the card;
 ``--cudaaligner-batches`` offloads the overlap alignment; ``--device
 cpu`` runs the port on the CPU (the kernels' plain versions), and
-without it a machine with no card is an error.
+without it a machine with no card is an error.  ``--trace`` writes a
+Chrome trace of the run and ``--metrics-json`` its run report
+(``racon_tpu_torch/obs``), both after the FASTA is flushed, as the JAX
+package's CLI does (racon_tpu/cli.py:393-444).
 
     python -m racon_tpu_torch.cli [options] <sequences> <overlaps> <targets>
 """
 
 from __future__ import annotations
 
+import os
 import sys
 
-from racon_tpu_torch import __version__, resolve_device
+from racon_tpu_torch import __version__, obs, resolve_device
 from racon_tpu_torch.core.overlap import InvalidInputError
 from racon_tpu_torch.core.polisher import PolisherType, create_polisher
 from racon_tpu_torch.io.parsers import (MalformedInputError,
                                         UnsupportedFormatError)
+from racon_tpu_torch.obs import flight as obs_flight
+from racon_tpu_torch.obs import provenance
 
 USAGE = """usage: racon_tpu_torch [options ...] <sequences> <overlaps> <target sequences>
 
@@ -50,6 +56,12 @@ USAGE = """usage: racon_tpu_torch [options ...] <sequences> <overlaps> <target s
                                    the card (pairs over 16384 bases
                                    stay on the CPU)
         --device <cuda|cpu>        default cuda
+        --trace <path>             write a Chrome trace of the run
+                                   (Perfetto, chrome://tracing); also
+                                   RACON_TPU_TORCH_TRACE
+        --metrics-json <path>      write the run report; also
+                                   RACON_TPU_TORCH_METRICS_JSON
+                                   (both also as --trace=<path> etc.)
         --version, -h/--help
 """
 
@@ -61,7 +73,12 @@ def parse_args(argv):
             "mismatch": -5, "gap": -4, "threads": 1,
             "type": PolisherType.kC, "drop_unpolished": True,
             "cuda_poa_batches": 0, "cuda_banded_alignment": False,
-            "cuda_aligner_batches": 0, "device": None}
+            "cuda_aligner_batches": 0, "device": None,
+            # the environment twins keep library and CLI runs on one
+            # switch
+            "trace": os.environ.get("RACON_TPU_TORCH_TRACE") or None,
+            "metrics_json": os.environ.get("RACON_TPU_TORCH_METRICS_JSON")
+            or None}
     value_opts = {"-w": ("window_length", int),
                   "--window-length": ("window_length", int),
                   "-q": ("quality_threshold", float),
@@ -74,12 +91,14 @@ def parse_args(argv):
                   "-t": ("threads", int), "--threads": ("threads", int),
                   "--cudaaligner-batches": ("cuda_aligner_batches", int),
                   "--cudapoa-batches": ("cuda_poa_batches", int),
-                  "--device": ("device", str)}
+                  "--device": ("device", str),
+                  "--trace": ("trace", str),
+                  "--metrics-json": ("metrics_json", str)}
     # long options that also take their value after "=" (the option
     # with an optional value, --cudapoa-batches, only there)
     eq_opts = ("--window-length", "--quality-threshold",
                "--error-threshold", "--cudapoa-batches",
-               "--cudaaligner-batches")
+               "--cudaaligner-batches", "--trace", "--metrics-json")
     positionals = []
     i, n = 0, len(argv)
     while i < n:
@@ -123,9 +142,52 @@ def parse_args(argv):
     return opts, positionals
 
 
+def _log_run_summary(polisher, opts) -> None:
+    """The end-of-run summary on stderr (racon_tpu/cli.py:251-281): the
+    streaming pipeline's counters when the POA stage ran on the card,
+    and the host budget."""
+    m = polisher.metrics
+    if opts["cuda_poa_batches"] > 0:
+        print("[racon_tpu_torch::] pipeline summary: "
+              f"spec used {int(m.value('poa_spec_used'))}"
+              f"/wasted {int(m.value('poa_spec_wasted'))} window(s), "
+              "ledger ready peak "
+              f"{int(m.value('ledger_ready_high_water'))}, "
+              f"overlap {float(m.value('pipeline_overlap_s')):.2f} s, "
+              f"device poa {float(m.value('poa_device_s')):.2f} s / "
+              f"align {float(m.value('align_device_s')):.2f} s",
+              file=sys.stderr)
+    print("[racon_tpu_torch::] host budget: "
+          f"parse {float(m.value('host.parse_s')):.2f} s, "
+          f"bp decode {float(m.value('host.bp_decode_s')):.2f} s, "
+          f"fragment {float(m.value('host.fragment_s')):.2f} s, "
+          f"stitch {float(m.value('host.stitch_s')):.2f} s, "
+          f"host share {float(m.value('host.share')):.3f}",
+          file=sys.stderr)
+
+
+def _report_details(polisher, device) -> dict:
+    """The run report's ``details``."""
+    def strkeys(name):
+        return {str(k): v for k, v in getattr(polisher, name, {}).items()}
+
+    return {"device": str(device),
+            "stage_walls": {k: round(v, 6)
+                            for k, v in polisher.stage_walls.items()},
+            "poa_split_detail": getattr(polisher, "poa_split_detail", {}),
+            "align_split_detail": getattr(polisher, "align_split_detail",
+                                          {}),
+            "align_rungs": getattr(polisher, "align_rungs", {}),
+            "align_retry_counts": strkeys("align_retry_counts"),
+            "poa_reject_counts": strkeys("poa_reject_counts")}
+
+
 def main(argv=None, out=None):
     """Run one polish; writes FASTA to ``out`` (default stdout) and
-    returns the polisher (its stage walls and kernel counters)."""
+    returns the polisher (its stage walls and kernel counters).  Then,
+    with ``--metrics-json``, the run report and, with ``--trace``, the
+    trace; with ``RACON_TPU_TORCH_FLIGHT_DUMP`` set, the flight ring,
+    which an unhandled exception also dumps there."""
     argv = sys.argv[1:] if argv is None else argv
     try:
         opts, inputs = parse_args(argv)
@@ -138,22 +200,34 @@ def main(argv=None, out=None):
         print(USAGE, end="", file=sys.stderr)
         raise SystemExit(1)
     device = resolve_device(opts["device"])
+    if opts["trace"]:
+        # one run per trace file
+        obs.TRACER.clear()
+        obs.enable_trace(opts["trace"])
+    flight_dump = os.environ.get(obs_flight.DUMP_ENV)
+    if flight_dump:
+        obs_flight.FLIGHT.install_dump_on_crash(flight_dump)
+    obs_flight.FLIGHT.record(
+        "run", inputs=[os.path.basename(p) for p in inputs[:3]],
+        threads=opts["threads"], device=str(device))
     try:
-        polisher = create_polisher(
-            inputs[0], inputs[1], inputs[2], opts["type"],
-            opts["window_length"], opts["quality_threshold"],
-            opts["error_threshold"], opts["trim"], opts["match"],
-            opts["mismatch"], opts["gap"], opts["threads"],
-            cuda_poa_batches=opts["cuda_poa_batches"],
-            cuda_banded_alignment=opts["cuda_banded_alignment"],
-            cuda_aligner_batches=opts["cuda_aligner_batches"],
-            device=device)
-        try:
-            polisher.initialize()
-            polished = polisher.polish(opts["drop_unpolished"])
-            polisher.total_log()
-        finally:
-            polisher.close()
+        with obs.span("racon_tpu_torch.run", cat="stage"):
+            polisher = create_polisher(
+                inputs[0], inputs[1], inputs[2], opts["type"],
+                opts["window_length"], opts["quality_threshold"],
+                opts["error_threshold"], opts["trim"], opts["match"],
+                opts["mismatch"], opts["gap"], opts["threads"],
+                cuda_poa_batches=opts["cuda_poa_batches"],
+                cuda_banded_alignment=opts["cuda_banded_alignment"],
+                cuda_aligner_batches=opts["cuda_aligner_batches"],
+                device=device)
+            try:
+                polisher.initialize()
+                polished = polisher.polish(opts["drop_unpolished"])
+            finally:
+                polisher.close()
+        polisher.total_log()
+        _log_run_summary(polisher, opts)
     except (InvalidInputError, UnsupportedFormatError,
             MalformedInputError, FileNotFoundError) as exc:
         print(f"[racon_tpu_torch::] error: {exc}", file=sys.stderr)
@@ -162,6 +236,25 @@ def main(argv=None, out=None):
     out.write(b"".join(b">" + seq.name.encode() + b"\n" + seq.data + b"\n"
                        for seq in polished))
     out.flush()
+    # the report, the trace and the flight dump come after the FASTA is
+    # flushed: the stdout contract comes first
+    if opts["metrics_json"]:
+        provenance.write_metrics_json(
+            opts["metrics_json"], run_registry=polisher.metrics,
+            details=_report_details(polisher, device),
+            device_util=getattr(polisher, "device_util", None))
+        print(f"[racon_tpu_torch::] metrics report written to "
+              f"{opts['metrics_json']}", file=sys.stderr)
+    if opts["trace"]:
+        path = obs.write_trace(opts["trace"])
+        obs.TRACER.disable()
+        print(f"[racon_tpu_torch::] trace written to {path} (open in "
+              "Perfetto / chrome://tracing)", file=sys.stderr)
+    if flight_dump:
+        obs_flight.FLIGHT.record("run_done", n_sequences=len(polished))
+        path = obs_flight.FLIGHT.dump(flight_dump, reason="run_done")
+        print(f"[racon_tpu_torch::] flight dump written to {path}",
+              file=sys.stderr)
     return polisher
 
 

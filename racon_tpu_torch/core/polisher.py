@@ -13,14 +13,17 @@ whatever the kernels leave.  A third hook, ``_notify_overlap_done``,
 fires once per overlap as its breaking points exist; the subclass's
 streaming pipeline routes the overlap's fragments into windows created
 before the align stage (``_create_windows``), and ``_build_windows``
-then routes only what that left.  Stage walls land in ``stage_walls``.
+then routes only what that left.  Stage walls land in ``stage_walls``;
+each stage is also a trace span named as in the JAX package
+(``racon_tpu_torch.load_targets`` ... ``racon_tpu_torch.consensus_stage``)
+and the host stages' seconds are the ``host.*`` budget of the per-run
+registry ``metrics`` (racon_tpu/core/polisher.py:_finish_host_budget).
 """
 
 from __future__ import annotations
 
 import concurrent.futures
 import enum
-import time
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -31,6 +34,9 @@ from racon_tpu_torch.core.sequence import Sequence
 from racon_tpu_torch.core.window import Window, WindowType
 from racon_tpu_torch.io.parsers import (create_overlap_parser,
                                         create_sequence_parser)
+from racon_tpu_torch.obs import REGISTRY, Registry
+from racon_tpu_torch.obs import calhealth as obs_calhealth
+from racon_tpu_torch.obs import trace as obs_trace
 from racon_tpu_torch.ops import cpu
 from racon_tpu_torch.utils.logger import Logger
 
@@ -100,6 +106,10 @@ class Polisher:
         # set when the streaming pipeline counted coverage already
         self._coverage_counted = False
         self.stage_walls: Dict[str, float] = {}
+        # per-run metrics registry: every write also reaches the
+        # process-wide REGISTRY; the --metrics-json report reads it
+        self.metrics = Registry(parent=REGISTRY)
+        self._t_run_start = None
         self.dummy_quality = b"!" * window_length
         self.engine = cpu.PoaEngine(match, mismatch, gap)
         self.logger = Logger()
@@ -108,7 +118,7 @@ class Polisher:
 
     def _wall(self, stage: str, t0: float) -> None:
         self.stage_walls[stage] = self.stage_walls.get(stage, 0.0) \
-            + time.perf_counter() - t0
+            + obs_trace.now() - t0
 
     # ------------------------------------------------------------------
     # initialize: reference src/polisher.cpp:191-459
@@ -120,9 +130,11 @@ class Polisher:
                   "object already initialized!")
             return
         self.logger.log()
-        t0 = time.perf_counter()
-        self.tparser.reset()
-        self.tparser.parse(self.sequences, -1)
+        t0 = self._t_run_start = obs_trace.now()
+        with obs_trace.span("racon_tpu_torch.load_targets", cat="stage",
+                            metric="host.parse_s", registry=self.metrics):
+            self.tparser.reset()
+            self.tparser.parse(self.sequences, -1)
         targets_size = len(self.sequences)
         if targets_size == 0:
             raise InvalidInputError("empty target sequences set!")
@@ -146,37 +158,39 @@ class Polisher:
         # (reference: src/polisher.cpp:228-263)
         sequences_size = 0
         total_sequences_length = 0
-        self.sparser.reset()
-        while True:
-            chunk_start = len(self.sequences)
-            status = self.sparser.parse(self.sequences, CHUNK_SIZE)
-            kept: List[Sequence] = []
-            n_dropped = 0
-            for i in range(chunk_start, len(self.sequences)):
-                seq = self.sequences[i]
-                total_sequences_length += len(seq.data)
-                existing = name_to_id.get(seq.name + "t")
-                if existing is not None:
-                    if len(seq.data) != \
-                            len(self.sequences[existing].data) or \
-                            len(seq.quality) != \
-                            len(self.sequences[existing].quality):
-                        raise InvalidInputError(
-                            f"duplicate sequence {seq.name} with unequal "
-                            "data")
-                    name_to_id[seq.name + "q"] = existing
-                    id_to_id[sequences_size << 1 | 0] = existing
-                    n_dropped += 1
-                else:
-                    new_id = i - n_dropped
-                    name_to_id[seq.name + "q"] = new_id
-                    id_to_id[sequences_size << 1 | 0] = new_id
-                    kept.append(seq)
-                sequences_size += 1
-            del self.sequences[chunk_start:]
-            self.sequences.extend(kept)
-            if not status:
-                break
+        with obs_trace.span("racon_tpu_torch.load_sequences", cat="stage",
+                            metric="host.parse_s", registry=self.metrics):
+            self.sparser.reset()
+            while True:
+                chunk_start = len(self.sequences)
+                status = self.sparser.parse(self.sequences, CHUNK_SIZE)
+                kept: List[Sequence] = []
+                n_dropped = 0
+                for i in range(chunk_start, len(self.sequences)):
+                    seq = self.sequences[i]
+                    total_sequences_length += len(seq.data)
+                    existing = name_to_id.get(seq.name + "t")
+                    if existing is not None:
+                        if len(seq.data) != \
+                                len(self.sequences[existing].data) or \
+                                len(seq.quality) != \
+                                len(self.sequences[existing].quality):
+                            raise InvalidInputError(
+                                f"duplicate sequence {seq.name} with unequal "
+                                "data")
+                        name_to_id[seq.name + "q"] = existing
+                        id_to_id[sequences_size << 1 | 0] = existing
+                        n_dropped += 1
+                    else:
+                        new_id = i - n_dropped
+                        name_to_id[seq.name + "q"] = new_id
+                        id_to_id[sequences_size << 1 | 0] = new_id
+                        kept.append(seq)
+                    sequences_size += 1
+                del self.sequences[chunk_start:]
+                self.sequences.extend(kept)
+                if not status:
+                    break
         if sequences_size == 0:
             raise InvalidInputError("empty sequences set!")
 
@@ -192,8 +206,10 @@ class Polisher:
                         "sequences")
         self.logger.log()
 
-        overlaps = self._load_overlaps(name_to_id, id_to_id, has_data,
-                                       has_reverse_data)
+        with obs_trace.span("racon_tpu_torch.load_overlaps", cat="stage",
+                            metric="host.parse_s", registry=self.metrics):
+            overlaps = self._load_overlaps(name_to_id, id_to_id, has_data,
+                                           has_reverse_data)
         if not overlaps:
             raise InvalidInputError("empty overlap set!")
         self.logger.log("[racon_tpu_torch::Polisher::initialize] loaded "
@@ -201,19 +217,24 @@ class Polisher:
         self.logger.log()
         # materialise reverse complements in the pool
         # (reference: src/polisher.cpp:368-377)
-        list(self._pool.map(
-            lambda args: args[0].transmute(*args[1:]),
-            [(s, has_name[j], has_data[j], has_reverse_data[j])
-             for j, s in enumerate(self.sequences)]))
+        with obs_trace.span("racon_tpu_torch.transmute", cat="stage"):
+            list(self._pool.map(
+                lambda args: args[0].transmute(*args[1:]),
+                [(s, has_name[j], has_data[j], has_reverse_data[j])
+                 for j, s in enumerate(self.sequences)]))
         self._wall("parse", t0)
 
-        t0 = time.perf_counter()
-        self.find_overlap_breaking_points(overlaps)
+        t0 = obs_trace.now()
+        with obs_trace.span("racon_tpu_torch.align_stage", cat="stage",
+                            metric="stage_wall_s.align",
+                            registry=self.metrics):
+            self.find_overlap_breaking_points(overlaps)
         self._wall("align", t0)
 
         self.logger.log()
-        t0 = time.perf_counter()
-        self._build_windows(targets_size, window_type, overlaps)
+        t0 = obs_trace.now()
+        with obs_trace.span("racon_tpu_torch.build_windows", cat="stage"):
+            self._build_windows(targets_size, window_type, overlaps)
         self._wall("windows", t0)
         self.logger.log("[racon_tpu_torch::Polisher::initialize] "
                         "transformed data into windows")
@@ -292,8 +313,9 @@ class Polisher:
 
         def one(slab):
             try:
-                overlap_mod.decode_breaking_points_batch(
-                    slab, self.window_length)
+                with self.metrics.timer("host.bp_decode_s"):
+                    overlap_mod.decode_breaking_points_batch(
+                        slab, self.window_length)
             except Exception:
                 pass
 
@@ -416,17 +438,19 @@ class Polisher:
         route every overlap it has not routed; coverage is counted
         here unless the pipeline counted it."""
         self._create_windows(targets_size, window_type)
-        for o in overlaps:
-            if not self._coverage_counted:
-                self.targets_coverages[o.t_id] += 1
-            if o.breaking_points is None or len(o.breaking_points) == 0:
-                # routed by the streaming seam (the ROUTED sentinel) or
-                # no points at all
-                continue
-            for wid, data, quality, begin, end in \
-                    self._overlap_window_fragments(o):
-                self.windows[wid].add_layer(data, quality, begin, end)
-            o.breaking_points = None
+        with self.metrics.timer("host.fragment_s"):
+            for o in overlaps:
+                if not self._coverage_counted:
+                    self.targets_coverages[o.t_id] += 1
+                if o.breaking_points is None or \
+                        len(o.breaking_points) == 0:
+                    # routed by the streaming seam (the ROUTED sentinel)
+                    # or no points at all
+                    continue
+                for wid, data, quality, begin, end in \
+                        self._overlap_window_fragments(o):
+                    self.windows[wid].add_layer(data, quality, begin, end)
+                o.breaking_points = None
 
     # ------------------------------------------------------------------
     # consensus + polish (reference: src/polisher.cpp:485-547)
@@ -443,34 +467,67 @@ class Polisher:
 
     def polish(self, drop_unpolished_sequences: bool) -> List[Sequence]:
         self.logger.log()
-        t0 = time.perf_counter()
-        polished_flags = self.generate_consensuses()
+        t0 = obs_trace.now()
+        with obs_trace.span("racon_tpu_torch.consensus_stage", cat="stage",
+                            metric="stage_wall_s.consensus",
+                            registry=self.metrics):
+            polished_flags = self.generate_consensuses()
         self._wall("poa", t0)
 
-        t0 = time.perf_counter()
+        t0 = obs_trace.now()
         dst: List[Sequence] = []
         start = 0
-        for i in range(len(self.windows)):
-            if i != len(self.windows) - 1 and \
-                    self.windows[i + 1].rank != 0:
-                continue
-            lo, hi = start, i + 1
-            start = i + 1
-            window = self.windows[hi - 1]
-            n_polished = sum(1 for k in range(lo, hi) if polished_flags[k])
-            polished_ratio = n_polished / (window.rank + 1)
-            if drop_unpolished_sequences and not polished_ratio > 0:
-                continue
-            data = b"".join(self.windows[k].consensus for k in range(lo, hi))
-            tags = "r" if self.type == PolisherType.kF else ""
-            tags += f" LN:i:{len(data)}"
-            tags += f" RC:i:{self.targets_coverages[window.id]}"
-            tags += f" XC:f:{polished_ratio:.6f}"
-            dst.append(Sequence(self.sequences[window.id].name + tags, data))
+        with self.metrics.timer("host.stitch_s"):
+            for i in range(len(self.windows)):
+                if i != len(self.windows) - 1 and \
+                        self.windows[i + 1].rank != 0:
+                    continue
+                lo, hi = start, i + 1
+                start = i + 1
+                window = self.windows[hi - 1]
+                n_polished = sum(1 for k in range(lo, hi)
+                                 if polished_flags[k])
+                polished_ratio = n_polished / (window.rank + 1)
+                if drop_unpolished_sequences and not polished_ratio > 0:
+                    continue
+                data = b"".join(self.windows[k].consensus
+                                for k in range(lo, hi))
+                tags = "r" if self.type == PolisherType.kF else ""
+                tags += f" LN:i:{len(data)}"
+                tags += f" RC:i:{self.targets_coverages[window.id]}"
+                tags += f" XC:f:{polished_ratio:.6f}"
+                dst.append(Sequence(self.sequences[window.id].name + tags,
+                                    data))
         self._wall("stitch", t0)
+        self._finish_host_budget()
         self.windows = []
         self.sequences = []
         return dst
+
+    def _finish_host_budget(self) -> None:
+        """The run's host budget gauges (racon_tpu/core/polisher.py:
+        755-781): ``host.stage_s``, the host stages' seconds (CPU
+        seconds: stages on the pool can sum past the wall), and
+        ``host.share``, their share of the run wall; and each host
+        stage's drift against its own learned per-unit rate."""
+        host_s = sum(float(self.metrics.value(k, 0.0))
+                     for k in ("host.parse_s", "host.bp_decode_s",
+                               "host.fragment_s", "host.stitch_s"))
+        self.metrics.set("host.stage_s", round(host_s, 6))
+        units = {"host.parse": len(self.sequences),
+                 "host.bp_decode": len(self.sequences),
+                 "host.fragment": len(self.windows),
+                 "host.stitch": self._targets_size}
+        for stage, n in units.items():
+            wall = float(self.metrics.value(stage + "_s", 0.0))
+            if wall > 0:
+                obs_calhealth.observe_units(stage, max(1, n), wall,
+                                            registry=self.metrics)
+        if self._t_run_start is not None:
+            wall = obs_trace.now() - self._t_run_start
+            if wall > 0:
+                self.metrics.set("host.share",
+                                 round(min(1.0, host_s / wall), 6))
 
     def total_log(self) -> None:
         self.logger.total("[racon_tpu_torch::Polisher::] total =")

@@ -45,8 +45,11 @@ class WindowLedger:
     (racon_tpu_torch/cuda/polisher.py).
     """
 
-    def __init__(self, n_windows: int):
+    def __init__(self, n_windows: int, metrics=None):
         self.pending = np.zeros(n_windows, np.int32)
+        #: registry whose ``ledger_ready_high_water`` gauge follows
+        #: ``ready_high_water`` (racon_tpu/tpu/polisher.py:709)
+        self.metrics = metrics
         self.cond = threading.Condition()
         # id(overlap) -> (ordinal, lo, hi); popped on completion, so a
         # second completion of the same overlap is a no-op
@@ -108,6 +111,9 @@ class WindowLedger:
             self.ready_high_water = max(self.ready_high_water,
                                         len(self.ready))
             self.cond.notify_all()
+        if self.metrics is not None:
+            self.metrics.peak("ledger_ready_high_water",
+                              self.ready_high_water)
 
     def pop_ready(self, cap: int, min_n: int = 1) -> List[int]:
         """Take up to ``cap`` ready windows, or none when fewer than

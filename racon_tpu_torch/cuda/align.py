@@ -8,7 +8,12 @@ depends on that pair alone, never on the batch it rides in.  On the
 card the launch is asynchronous, so ``run_pipelined`` keeps two chunks
 in flight: chunk k + 1 is encoded and launched before chunk k is
 collected.  A collect closure's ``kernel_ms()`` is the chunk's
-CUDA-event time once collected (0 on the CPU).
+CUDA-event time once collected (0 on the CPU), and ``device_s()`` its
+interval's length on the obs clock (the plain version's host time on
+the CPU).  Collecting records that interval in the trace's ``device``
+lane as ``device.align_wfa{emax}`` / ``device.align_band{wb}`` and in
+the dispatch's ``util`` (default ``obs.DEVICE_UTIL``) under
+``align_wfa`` / ``align_band`` (``cuda/devclock.py``).
 """
 
 from __future__ import annotations
@@ -21,6 +26,7 @@ import torch
 from racon_tpu_torch.cuda import align_band as ab
 from racon_tpu_torch.cuda import align_wfa as aw
 from racon_tpu_torch.cuda import aligner as al
+from racon_tpu_torch.cuda.devclock import DispatchTimer
 
 
 def _lengths(seqs, device):
@@ -28,19 +34,17 @@ def _lengths(seqs, device):
                         device=device)
 
 
-def _timed(device, launch):
-    """Run ``launch()``; returns (outputs, kernel_ms getter)."""
-    if device.type != "cuda":
-        return launch(), lambda: 0.0
-    e0 = torch.cuda.Event(enable_timing=True)
-    e1 = torch.cuda.Event(enable_timing=True)
-    e0.record()
+def _timed(device, launch, util=None):
+    """Run ``launch()`` between two marks; returns (outputs, timer)."""
+    timer = DispatchTimer(device, util)
+    timer.mark()
     out = launch()
-    e1.record()
-    return out, lambda: e0.elapsed_time(e1)
+    timer.mark()
+    return out, timer
 
 
-def wfa_dispatch(queries, targets, lq: int, emax: int, device):
+def wfa_dispatch(queries, targets, lq: int, emax: int, device,
+                 util=None):
     """Launch one WFA chunk; ``collect()`` gives (tapes [n, entries]
     int64, entry counts, distances) with distances exact (<= emax) or
     ``BIG`` for rejected pairs; it also sets ``collect.phase_cycles``,
@@ -50,24 +54,26 @@ def wfa_dispatch(queries, targets, lq: int, emax: int, device):
     q = torch.from_numpy(al.encode_batch(queries, lq, al.QPAD)).to(device)
     t = torch.from_numpy(al.encode_batch(targets, lq, al.TPAD)).to(device)
     lmax = max(max(map(len, queries)), max(map(len, targets)), 1)
-    (tape, meta), ms = _timed(device, lambda: aw.wfa_align(
+    (tape, meta), timer = _timed(device, lambda: aw.wfa_align(
         q, t, _lengths(queries, device), _lengths(targets, device),
-        emax=emax, lmax=lmax))
+        emax=emax, lmax=lmax), util)
 
     def collect():
         tp = tape.cpu().numpy().reshape(n, -1).astype(np.int64)
         mt = meta.cpu().numpy()
+        timer.record(f"device.align_wfa{emax}", "align_wfa", {"n": n})
         if (mt[:, 0] == aw.TOO_LONG).any():
             raise RuntimeError(f"align_wfa: a pair longer than lmax={lmax}")
         collect.phase_cycles = mt[:, 2:4].astype(np.int64).sum(0).tolist()
         return tp, mt[:, 1], mt[:, 0]
 
-    collect.kernel_ms = ms
+    collect.kernel_ms = timer.kernel_ms
+    collect.device_s = timer.device_s
     return collect
 
 
 def band_dispatch(queries, targets, lq: int, lt: int, wb: int, device,
-                  centers=None):
+                  centers=None, util=None):
     """Launch one banded chunk; ``centers`` holds one knot array per
     pair (``estimate_center_knots``) or None for the proportional
     diagonal.  ``collect()`` gives (moves [n, 16 * words] uint8, move
@@ -81,16 +87,18 @@ def band_dispatch(queries, targets, lq: int, lt: int, wb: int, device,
         for k in range(n)]).astype(np.int32)
     q = torch.from_numpy(al.encode_batch(queries, lq, al.QPAD)).to(device)
     t = torch.from_numpy(al.encode_batch(targets, lt, al.TPAD)).to(device)
-    (tape, meta), ms = _timed(device, lambda: ab.band_align(
+    (tape, meta), timer = _timed(device, lambda: ab.band_align(
         q, t, _lengths(queries, device), _lengths(targets, device),
-        torch.from_numpy(ctr).to(device), wb=wb))
+        torch.from_numpy(ctr).to(device), wb=wb), util)
 
     def collect():
         mt = meta.cpu().numpy()
+        timer.record(f"device.align_band{wb}", "align_band", {"n": n})
         collect.phase_cycles = mt[:, 2:4].astype(np.int64).sum(0).tolist()
         return ab.unpack_moves(tape.cpu().numpy()), mt[:, 1], mt[:, 0]
 
-    collect.kernel_ms = ms
+    collect.kernel_ms = timer.kernel_ms
+    collect.device_s = timer.device_s
     return collect
 
 

@@ -14,8 +14,9 @@ import os
 import shutil
 import subprocess
 import threading
-import time
 from typing import Dict, List
+
+from racon_tpu_torch.obs.trace import now
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "cuda", "csrc")
@@ -77,7 +78,7 @@ def _start(name: str):
            "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", out + ".tmp", src]
     return subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True), \
-        time.perf_counter()
+        now()
 
 
 def build_all(names: List[str] = None) -> Dict[str, dict]:
@@ -106,7 +107,7 @@ def build_all(names: List[str] = None) -> Dict[str, dict]:
         with open(lib_path(n) + ".ptxas", "w") as fh:
             fh.write(log.strip())
         os.replace(lib_path(n) + ".tmp", lib_path(n))
-        BUILD_LOG[n] = {"seconds": time.perf_counter() - t0,
+        BUILD_LOG[n] = {"seconds": now() - t0,
                         "ptxas": log.strip()}
     if errors:
         raise RuntimeError("[racon_tpu_torch::cuda] nvcc failed:\n"

@@ -202,10 +202,13 @@ def check_inputs(seqs, wts, meta, nlay, bblen, *, v, lp, wb, p, s,
 
 def poa_full(seqs, wts, meta, nlay, bblen, *, v: int, lp: int, wb: int,
              match: int, mismatch: int, gap: int, wtype: int, trim: int,
-             p: int = 16, s: int = 16, a: int = 8, stats=None):
+             p: int = 16, s: int = 16, a: int = 8, stats=None,
+             timer=None):
     """Consensus of every window of the batch: (cons [B, V] int32,
     mout [B, 8] int32) on the inputs' device; ``stats``, when given,
-    is a [B, 3] int32 tensor on that device filled in place.  CUDA
+    is a [B, 3] int32 tensor on that device filled in place, and
+    ``timer``, a ``devclock.DispatchTimer``, gets a mark after each
+    pass's launch on the card.  CUDA
     tensors launch the kernel, in two passes of resident blocks that
     take the windows in batch order: the first with a shared-memory
     graph of ``first_pass_nodes(v)`` nodes, the second with all ``v``
@@ -259,6 +262,8 @@ def poa_full(seqs, wts, meta, nlay, bblen, *, v: int, lp: int, wb: int,
                 f"{build.error_string('poa_full', err)} ({err})")
         with _LAUNCH_LOCK:
             LAUNCHES += 1
+        if timer is not None:
+            timer.mark()
     return cons, mout
 
 

@@ -1,0 +1,162 @@
+"""Per-run provenance and the ``--metrics-json`` run report (JAX
+package: racon_tpu/obs/provenance.py).
+
+:func:`write_metrics_json` writes one self-describing JSON document::
+
+    {"schema": "racon-tpu-torch-metrics-v1",
+     "environment": {"knobs", "torch", "host"},
+     "run": <the polisher's registry snapshot>,
+     "process": <the global registry snapshot>,
+     "device_util": <obs/devutil.py snapshot>,
+     "details": {...}}
+
+with the JAX report's top-level keys; ``environment.torch`` takes the
+place of its ``environment.jax``.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+
+SCHEMA = "racon-tpu-torch-metrics-v1"
+
+#: every environment variable the port reads, with its default as the
+#: code resolves it ("" = unset).  Swept with any other
+#: RACON_TPU_TORCH_* in the environment (the RATE_* pins among them).
+KNOWN_KNOBS = {
+    "RACON_TPU_TORCH_PIPELINE": "1",
+    "RACON_TPU_TORCH_ALIGN_DEVICE_ONLY": "",
+    "RACON_TPU_TORCH_POA_DEVICE_ONLY": "",
+    "RACON_TPU_TORCH_ALIGN_SPLIT": "",
+    "RACON_TPU_TORCH_POA_SPLIT": "",
+    "RACON_TPU_TORCH_MAX_ALIGN_DIM": "16384",
+    "RACON_TPU_TORCH_WFA_MAX_MB": "256",
+    "RACON_TPU_TORCH_CACHE_DIR": "",
+    "RACON_TPU_TORCH_RECALIBRATE": "",
+    "RACON_TPU_TORCH_TRACE": "",
+    "RACON_TPU_TORCH_METRICS_JSON": "",
+    "RACON_TPU_TORCH_FLIGHT_DUMP": "",
+}
+
+_probe_cache: list = []
+
+
+def resolved_knobs() -> dict:
+    """Every RACON_TPU_TORCH_* knob with its resolved value and
+    source."""
+    names = set(KNOWN_KNOBS)
+    names.update(k for k in os.environ if k.startswith("RACON_TPU_TORCH_"))
+    out = {}
+    for name in sorted(names):
+        env = os.environ.get(name)
+        out[name] = {"value": env if env is not None
+                     else KNOWN_KNOBS.get(name, ""),
+                     "source": "env" if env is not None else "default"}
+    return out
+
+
+def card_line():
+    """The cards as ``nvidia-smi --query-gpu=name,power.limit
+    --format=csv,noheader`` prints them (one entry per card), or None
+    where there is no nvidia-smi."""
+    try:
+        res = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=30)
+    except (OSError, subprocess.SubprocessError):
+        return None
+    lines = res.stdout.strip().splitlines()
+    return lines if res.returncode == 0 and lines else None
+
+
+def torch_info() -> dict:
+    """torch and CUDA versions, and the card's name and power limit."""
+    import torch
+
+    out = {"version": torch.__version__, "cuda": torch.version.cuda,
+           "cuda_available": torch.cuda.is_available()}
+    if out["cuda_available"]:
+        out["device_count"] = torch.cuda.device_count()
+        out["device"] = torch.cuda.get_device_name(0)
+        out["card"] = card_line()
+    return out
+
+
+def host_probe() -> dict:
+    """Host capability: best-of-3 wall of a fixed native edit-distance
+    probe (100 kb pair, 10% divergence, seeded) on the port's native
+    engine.  Cached per process; a failure is reported in the result,
+    not raised."""
+    if _probe_cache:
+        return _probe_cache[0]
+    from racon_tpu_torch.obs.trace import now
+
+    out = {}
+    try:
+        import numpy as np
+
+        from racon_tpu_torch.ops import cpu
+
+        rng = np.random.default_rng(42)
+        acgt = np.frombuffer(b"ACGT", np.uint8)
+        g = acgt[rng.integers(0, 4, 100_000)]
+        m = g.copy()
+        idx = rng.random(len(m)) < 0.10
+        m[idx] = acgt[rng.integers(0, 4, int(idx.sum()))]
+        q, t = g.tobytes(), m.tobytes()
+        cpu.get_library()             # build outside the timing
+        best = None
+        for _ in range(3):
+            t0 = now()
+            cpu.edit_distance(q, t)
+            dt = now() - t0
+            best = dt if best is None else min(best, dt)
+        out["probe_wall_s"] = round(best, 4)
+    except (OSError, RuntimeError) as exc:
+        out["error"] = f"{type(exc).__name__}: {exc}"
+    _probe_cache.append(out)
+    return out
+
+
+def environment(probe: bool = True) -> dict:
+    env = {"knobs": resolved_knobs(), "torch": torch_info(),
+           "host": {"cpu_count": os.cpu_count(), "platform": sys.platform}}
+    if probe:
+        env["host"]["capability_probe"] = host_probe()
+    return env
+
+
+def metrics_doc(run_registry=None, details=None, probe: bool = True,
+                device_util=None) -> dict:
+    """The run report as a dict (what ``--metrics-json`` writes);
+    ``device_util`` is the run's ``DeviceUtil`` (default the process's
+    ``DEVICE_UTIL``)."""
+    from racon_tpu_torch.obs.devutil import DEVICE_UTIL
+    from racon_tpu_torch.obs.metrics import REGISTRY
+
+    doc = {"schema": SCHEMA,
+           "environment": environment(probe=probe),
+           "run": (run_registry.snapshot()
+                   if run_registry is not None else None),
+           "process": REGISTRY.snapshot(),
+           "device_util": (DEVICE_UTIL if device_util is None
+                           else device_util).snapshot()}
+    if details:
+        doc["details"] = details
+    return doc
+
+
+def write_metrics_json(path: str, run_registry=None, details=None,
+                       probe: bool = True, device_util=None) -> str:
+    """Write the run report (atomic replace); returns ``path``."""
+    doc = metrics_doc(run_registry=run_registry, details=details,
+                      probe=probe, device_util=device_util)
+    tmp = path + f".tmp{os.getpid()}"
+    with open(tmp, "w") as f:
+        json.dump(doc, f, indent=1)
+    os.replace(tmp, path)
+    return path

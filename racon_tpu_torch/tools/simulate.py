@@ -229,3 +229,31 @@ def simulate(out_dir: str, genome_len: int = 1_000_000,
     with open(os.path.join(out_dir, "truth.json"), "w") as tf:
         json.dump({"draft_len": dlen, "reads": truth}, tf, indent=0)
     return reads_path, paf_path, draft_path
+
+
+def long_pair(out_dir: str, seed: int = 5) -> Tuple[str, str, str]:
+    """A set for the align length cap: a 21,000-base draft, one read of
+    20,000 bases of it (past the WFA kernel's 16,384 rows) and 12 reads
+    of 1,000 bases, each with a substitution every 97 bases (so every
+    pair has one optimal alignment, whatever aligner finds it), and
+    their PAF overlaps.  Writes reads.fasta, ovl.paf and draft.fasta
+    into ``out_dir``; returns (reads_path, paf_path, draft_path)."""
+    rng = np.random.default_rng(seed)
+    os.makedirs(out_dir, exist_ok=True)
+    draft = _ACGT[rng.integers(0, 4, 21_000)]
+    spans = [(500, 20_000)] + [(200 + 1_600 * k, 1_000) for k in range(12)]
+    fasta, paf = [], []
+    for r, (start, n) in enumerate(spans):
+        seq = draft[start:start + n].copy()
+        # each base to the next of A, C, G, T (_ACGT is sorted)
+        seq[40::97] = _ACGT[(np.searchsorted(_ACGT, seq[40::97]) + 1) % 4]
+        fasta.append(b">r%d\n%s\n" % (r, seq.tobytes()))
+        paf.append(b"r%d\t%d\t0\t%d\t+\tdraft\t%d\t%d\t%d\t%d\t%d\t60\n"
+                   % (r, n, n, draft.size, start, start + n, n, n))
+    paths = tuple(os.path.join(out_dir, name)
+                  for name in ("reads.fasta", "ovl.paf", "draft.fasta"))
+    for path, data in zip(paths, (b"".join(fasta), b"".join(paf),
+                                  b">draft\n" + draft.tobytes() + b"\n")):
+        with open(path, "wb") as fh:
+            fh.write(data)
+    return paths

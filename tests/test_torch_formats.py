@@ -225,7 +225,9 @@ def test_no_trimming_changes_the_polish(sim):
     ("--quality-threshold", "5", "quality_threshold"),
     ("--error-threshold", "0.2", "error_threshold"),
     ("--cudapoa-batches", "2", "cuda_poa_batches"),
-    ("--cudaaligner-batches", "3", "cuda_aligner_batches")])
+    ("--cudaaligner-batches", "3", "cuda_aligner_batches"),
+    ("--trace", "t.json", "trace"),
+    ("--metrics-json", "m.json", "metrics_json")])
 def test_eq_form_parses_like_two_words(opt, value, key):
     eq, _ = cli.parse_args([f"{opt}={value}", "r", "o", "t"])
     two, pos = cli.parse_args([opt, value, "r", "o", "t"])
