@@ -2,7 +2,8 @@
 """On-card smoke run of the PyTorch/CUDA port (racon_tpu_torch).
 
     python3 chip_smoke.py [--genome-len N] [--threads T] [--work DIR]
-                          [--only band|wfa|default|traced] [--keep DIR]
+                          [--only band|wfa|default|traced|map]
+                          [--keep DIR]
 
 Needs one CUDA card.  Phases, one JSON line each:
 
@@ -96,9 +97,28 @@ Needs one CUDA card.  Phases, one JSON line each:
    pipeline_bytes  the first 1 Mb of the set at the second run's
                 stored rates, pinned: pipeline off, then on, then on and
                 traced; the FASTA must be byte-identical;
+   map_rounds   reads + draft with no PAF (the mapper):
+                ``seed_words``: the seed-word kernel, its plain version
+                on the card and numpy on every buffer the mapper seeds
+                at k 13 (the reads in batches of up to 2^26 bases, then
+                the draft) and on a 1 Mb cut at k 5 and 15, 0
+                mismatches, with the kernel's ms, bound, the conv1d
+                yardstick, the copies and numpy; then the CLI at the
+                defaults with no PAF, --rounds 2 with --metrics-json on
+                the whole set: per round wall,
+                map_s, overlaps, recall >= 0.95 and precision >= 0.90
+                against truth.json, distance <= draft / 10, stage
+                walls and launches, every kernel launched; then on the
+                first 1 Mb --rounds 1 with the words built on the card
+                and --rounds 2 with them built by numpy, whose round 1
+                must map the same overlaps and write the same bytes
+                (``map_seed_bytes``); ``--only map`` also maps the whole
+                set with every chain emitted, as the JAX package does
+                (``map_quality``);
 7. native_compare  200 region windows on the POA kernel and on the
                 native CPU engine: summed edit distance between the two;
-8. kernels      every ported kernel with its launches in phase 6.
+8. kernels      every ported kernel with its launches in phase 6 (the
+                seed-word kernel's in map_rounds' --rounds 2 run).
 
 Then the card's line as nvidia-smi prints it and the result line.  Any
 failure raises and the script exits non-zero without a result line.
@@ -106,7 +126,8 @@ failure raises and the script exits non-zero without a result line.
 band_card (wfa_card), then exits 0 without the result line (a few
 minutes: a trial of one align kernel); ``--only default`` runs phases
 1-3, polish_default and pipeline_bytes the same way, ``--only traced``
-phases 1-3, the staged polish, traced and long_cap.  ``--keep DIR`` copies the
+phases 1-3, the staged polish, traced and long_cap, ``--only map``
+phases 1-3 and map_rounds.  ``--keep DIR`` copies the
 traced runs' traces and reports to DIR (open a trace in Perfetto).  The
 calibration store is off (``RACON_TPU_TORCH_CACHE_DIR=""``) outside
 polish_default.
@@ -157,6 +178,10 @@ OPS_PER_WFA_CELL = 7
 # min(H[j], H[j-1] + 1) 2, the 2-bit direction 4 (two compares, two
 # selects) and its packing 2 (shift, or)
 OPS_PER_BAND_CELL = 12
+# seed words (one k-mer start, built by rolling from its neighbour): the
+# code's & 3 1, fw's shift, or and mask 3, rv's subtract, two shifts and
+# or 4
+OPS_PER_SEED_WORD = 8
 
 
 def emit(phase: str, **kw) -> None:
@@ -1095,23 +1120,37 @@ def chunk_rates(chunks) -> dict:
     return out
 
 
-def counted_polish(cli, argv, out_path):
+def launch_counts(mapped: bool = False) -> dict:
+    """Every kernel's launch count now (``seed_words`` too when the run
+    maps its overlaps)."""
+    from racon_tpu_torch.cuda import align_band as ab
+    from racon_tpu_torch.cuda import align_wfa as aw
+    from racon_tpu_torch.cuda import poa_full as pf
+    from racon_tpu_torch.cuda import seed_words as sw
+
+    out = {"poa_full": pf.LAUNCHES, "align_wfa": aw.LAUNCHES,
+           "align_band": ab.LAUNCHES}
+    if mapped:
+        out["seed_words"] = sw.LAUNCHES
+    return out
+
+
+def counted_polish(cli, argv, out_path, mapped: bool = False):
     """One CLI polish with every kernel's launch count set to 0 just
     before it; returns (polisher, wall s, launches)."""
     from racon_tpu_torch.cuda import align_band as ab
     from racon_tpu_torch.cuda import align_wfa as aw
     from racon_tpu_torch.cuda import poa_full as pf
+    from racon_tpu_torch.cuda import seed_words as sw
 
     before = card_state()
-    pf.LAUNCHES = aw.LAUNCHES = ab.LAUNCHES = 0
+    pf.LAUNCHES = aw.LAUNCHES = ab.LAUNCHES = sw.LAUNCHES = 0
     t0 = time.perf_counter()
     with open(out_path, "wb") as out:
         polisher = cli.main(argv, out=out)
     wall = time.perf_counter() - t0
     polisher.card_states = (before, card_state())
-    return polisher, wall, {"poa_full": pf.LAUNCHES,
-                            "align_wfa": aw.LAUNCHES,
-                            "align_band": ab.LAUNCHES}
+    return polisher, wall, launch_counts(mapped)
 
 
 #: the staged, all-device path of phase 6 (and of the traced phase)
@@ -1425,18 +1464,369 @@ def default_path(cli, cpu, work, reads, paf, draft, truth, d_draft,
                            "FASTA at pinned rates")
 
 
+def load_sequences(path: str) -> list:
+    from racon_tpu_torch.io.parsers import create_sequence_parser
+
+    parser = create_sequence_parser(path)
+    seqs: list = []
+    try:
+        parser.reset()
+        parser.parse(seqs, -1)
+    finally:
+        parser.close()
+    return seqs
+
+
+def seed_buffers(reads: str, draft: str) -> list:
+    """The code buffers the mapper's seeding launches on per round: the
+    reads in its batches of up to ``chain.SEED_BATCH`` bases, then the
+    draft."""
+    from racon_tpu_torch.overlap import chain, minimizers
+
+    datas = [s.data for s in load_sequences(reads)]
+    bufs = [b"".join(b) for b in chain._batches(datas, chain.SEED_BATCH)]
+    bufs += [s.data for s in load_sequences(draft)]
+    return [minimizers.encode(b) for b in bufs]
+
+
+def conv_words(codes, k: int):
+    """The yardstick: one float64 conv1d (two groups) computes fw and rv
+    exactly (every word < 2^30); returns (the call, its input)."""
+    import torch
+    x = (codes & 3).to(torch.float64)
+    inp = torch.stack([x, 3 - x])[None]
+    w = torch.tensor([[4.0 ** (k - 1 - j) for j in range(k)],
+                      [4.0 ** j for j in range(k)]], dtype=torch.float64,
+                     device=codes.device)[:, None, :]
+    return lambda: torch.nn.functional.conv1d(inp, w, groups=2)
+
+
+def seed_check(reads: str, draft: str, dev) -> dict:
+    """map_rounds part 1: the seed-word kernel, its plain version on the
+    card and numpy on every buffer the main path seeds (k 13), and on a
+    1 Mb cut at k 5 and 15: 0 mismatches; per buffer the kernel's
+    CUDA-event ms (median of 5), the plain version's ms (one call), the
+    conv1d yardstick's ms (median of 5), the copies' ms and numpy's."""
+    import numpy as np
+    import torch
+    from racon_tpu_torch.cuda import seed_words as sw
+    from racon_tpu_torch.overlap import minimizers
+
+    bufs = seed_buffers(reads, draft)
+    rows, mismatches, err = [], 0, 0
+    tot = dict(kernel_ms=0.0, plain_ms=0.0, library_ms=0.0, h2d_ms=0.0,
+               d2h_ms=0.0, numpy_ms=0.0, bound_ms=0.0, bytes=0, ops=0)
+    library_mismatches = 0
+
+    def check(codes, k, timed):
+        nonlocal mismatches, err, library_mismatches
+        n = int(codes.size)
+        host = torch.from_numpy(codes)
+        h2d = statistics.median(cuda_ms(lambda: host.to(dev), 3))
+        cd = host.to(dev)
+        out, ref, ms, plain_ms = timed_pair(
+            lambda: sw.seed_words(cd, k),
+            lambda: sw.seed_words_reference(cd, k), reps=5 if timed else 1)
+        d2h = statistics.median(cuda_ms(
+            lambda: (out[0].cpu(), out[1].cpu()), 3))
+        t0 = time.perf_counter()
+        want = minimizers.kmer_words(codes, k, minimizers.NUMPY)
+        numpy_ms = 1e3 * (time.perf_counter() - t0)
+        got = [t.cpu().numpy().view(np.uint32) for t in out]
+        plain = [t.cpu().numpy().view(np.uint32) for t in ref]
+        bad = sum(int((g != w).sum()) + int((p != w).sum())
+                  for g, p, w in zip(got, plain, want))
+        mismatches += bad
+        err = max([err] + [int(np.abs(g.astype(np.int64)
+                                      - p.astype(np.int64)).max())
+                           for g, p in zip(got, plain)])
+        lib_ms = None
+        if timed:
+            call = conv_words(cd, k)
+            lib = call()
+            lib_ms = statistics.median(cuda_ms(call, 5))
+            lib_words = lib[0].round().to(torch.int64).cpu().numpy()
+            library_mismatches += sum(
+                int((lib_words[c] != w.astype(np.int64)).sum())
+                for c, w in enumerate(want))
+            del lib, call
+        nk = n - k + 1
+        bms, by = bound(n, 8 * nk, OPS_PER_SEED_WORD * nk)
+        row = {"k": k, "bases": n, "mismatches": bad,
+               "kernel_ms": round(ms, 4), "plain_ms": round(plain_ms, 3),
+               "library_ms": None if lib_ms is None else round(lib_ms, 4),
+               "h2d_ms": round(h2d, 3), "d2h_ms": round(d2h, 3),
+               "numpy_ms": round(numpy_ms, 1), "bound_ms": round(bms, 4),
+               "bound_by": by}
+        if timed:
+            tot["kernel_ms"] += ms
+            tot["plain_ms"] += plain_ms
+            tot["library_ms"] += lib_ms
+            tot["h2d_ms"] += h2d
+            tot["d2h_ms"] += d2h
+            tot["numpy_ms"] += numpy_ms
+            tot["bytes"] += n + 8 * nk
+            tot["ops"] += OPS_PER_SEED_WORD * nk
+        del cd, out, ref
+        torch.cuda.empty_cache()
+        return row
+
+    for codes in bufs:
+        rows.append(check(codes, 13, True))
+    cut = bufs[0][:1_000_000]
+    for k in (5, 15):
+        rows.append(check(cut, k, False))
+    bms, by = bound(tot["bytes"], 0, tot["ops"])
+    res = {"buffers": rows, "k": 13, "launches_per_round": len(bufs),
+           "bases": sum(int(b.size) for b in bufs), "mismatches": mismatches,
+           "max_abs_err": err, "library_mismatches": library_mismatches,
+           **{key: round(v, 4) for key, v in tot.items()
+              if key.endswith("_ms")},
+           "bound_ms": round(bms, 4), "bound_by": by}
+    emit("seed_words", **res)
+    if mismatches:
+        raise RuntimeError(f"seed words: {mismatches} word(s) differ among "
+                           "the kernel, its plain version and numpy")
+    return res
+
+
+def recall_precision(overlaps, truth_reads) -> tuple:
+    """The JAX package's mapper bar (tests/test_overlap_discovery.py): a
+    read is found when one of its overlaps has the true strand and
+    covers at least half its true span."""
+    by_name = {}
+    for name, strand, t_begin, t_end in overlaps:
+        by_name.setdefault(name, []).append((strand, t_begin, t_end))
+    hit = 0
+    for rec in truth_reads:
+        span = rec["t_end"] - rec["t_begin"]
+        for strand, t_begin, t_end in by_name.get(rec["name"], []):
+            inter = min(t_end, rec["t_end"]) - max(t_begin, rec["t_begin"])
+            if strand == (rec["strand"] == "-") and inter >= 0.5 * span:
+                hit += 1
+                break
+    return hit / max(1, len(truth_reads)), hit / max(1, len(overlaps))
+
+
+@contextlib.contextmanager
+def mapping_spy():
+    """Record, for every mapping of the run, its overlaps as (read,
+    strand, t_begin, t_end), its targets (from round 2 on, the previous
+    round's polished draft) and every kernel's launch count just before
+    it: a round maps first, so these counts cut the run's launches by
+    round."""
+    from racon_tpu_torch.overlap import chain
+
+    orig = chain.map_sequences
+    calls = []
+
+    def spy(queries, targets, **kw):
+        launches = launch_counts(mapped=True)
+        out, stats = orig(queries, targets, **kw)
+        calls.append({"launches_before": launches, "overlaps": [
+            (o.q_name, o.strand, o.t_begin, o.t_end) for o in out],
+            "targets": [t.data for t in targets]})
+        return out, stats
+
+    chain.map_sequences = spy
+    try:
+        yield calls
+    finally:
+        chain.map_sequences = orig
+
+
+def truth_prefix(truth: bytes, draft_cut: bytes, scale: float) -> bytes:
+    """The truth's prefix that a draft prefix covers: ends where the
+    cut's last unmutated, unique 32-mer sits in the truth (the draft
+    scales the truth's coordinates by ``scale``, with local drift)."""
+    n = len(draft_cut)
+    guess = int(n / scale)
+    for back in range(32, n, 7):
+        kmer = draft_cut[n - back:n - back + 32]
+        hit = truth.find(kmer, max(0, guess - 5000), guess + 5000)
+        if hit >= 0 and truth.find(kmer, hit + 1, guess + 5000) < 0:
+            return truth[:hit + back]
+    raise RuntimeError("no anchor for the draft cut's end in the truth")
+
+
+def kept_misplaced(overlaps, truth_reads) -> dict:
+    """Reads whose overlap the contig polisher keeps (the longest; a
+    later one wins a tie, ``Polisher._load_overlaps``) lies off their
+    true placement (other strand, or a start more than 2 kb away), and
+    those of them longer than the align ladder's 16,384 bases; plus
+    the reads with more than one overlap."""
+    kept, multi = {}, set()
+    for o in overlaps:
+        if o.q_name in kept:
+            multi.add(o.q_name)
+            if o.length < kept[o.q_name].length:
+                continue
+        kept[o.q_name] = o
+    off = long_off = 0
+    for rec in truth_reads:
+        o = kept.get(rec["name"])
+        if o is None:
+            continue
+        if o.strand != (rec["strand"] == "-") or \
+                abs(o.t_begin - rec["t_begin"]) > 2000:
+            off += 1
+            long_off += o.length > 16_384
+    return {"multi_overlap_reads": len(multi), "kept_misplaced": off,
+            "kept_misplaced_over_16384": long_off}
+
+
+def map_quality(reads: str, draft: str, data: str) -> dict:
+    """``--only map``: the mapper alone on the whole set with every
+    admitted chain emitted, as the JAX package's does
+    (``overlap.map_files`` at its defaults: words on the card): overlaps
+    against the
+    PAF's, recall and precision against truth.json (>= 0.95 / 0.90,
+    the JAX package's bar), the reads whose kept overlap would be
+    misplaced, map_s and the seed kernel's launches."""
+    from racon_tpu_torch.cuda import seed_words as sw
+    from racon_tpu_torch.overlap import map_files
+
+    with open(os.path.join(data, "truth.json")) as fh:
+        truth_reads = json.load(fh)["reads"]
+    with open(os.path.join(data, "reads2draft.paf"), "rb") as fh:
+        paf_overlaps = sum(1 for _ in fh)
+    sw.LAUNCHES = 0
+    t0 = time.perf_counter()
+    overlaps, stats = map_files(reads, draft)
+    map_s = time.perf_counter() - t0
+    rec, prec = recall_precision(
+        [(o.q_name, o.strand, o.t_begin, o.t_end) for o in overlaps],
+        truth_reads)
+    res = {"reads": stats["queries"], "overlaps": stats["overlaps"],
+           "paf_overlaps": paf_overlaps, "recall": round(rec, 4),
+           "precision": round(prec, 4), "map_s": round(map_s, 3),
+           "seed_launches": sw.LAUNCHES, "stats": stats,
+           **kept_misplaced(overlaps, truth_reads)}
+    emit("map_quality", **res)
+    if rec < 0.95 or prec < 0.90 or sw.LAUNCHES <= 0:
+        raise RuntimeError(f"map_quality: recall {rec:.4f}, precision "
+                           f"{prec:.4f}, seed launches {sw.LAUNCHES}")
+    return res
+
+
+#: draft bases of the cut that map_rounds' --rounds 1 runs polish (with
+#: the reads inside them)
+MAP_CUT_BP = 1_000_000
+
+
+def map_rounds(cli, cpu, work, data, reads, draft, truth, threads, dev,
+               keep=None, quality: bool = False) -> dict:
+    """map_rounds: seed-word parity on the whole set (and, with
+    ``quality``, the mapper's every chain on it); the CLI with no PAF at
+    the port's defaults, --rounds 2 with --metrics-json on the whole
+    set; then on the first MAP_CUT_BP bases --rounds 1 with the words
+    built on the card and --rounds 2 with the words built by numpy,
+    whose round 1 must give the same overlaps and bytes."""
+    seed = seed_check(reads, draft, dev)
+    if quality:
+        map_quality(reads, draft, data)
+    scale = len(read_fasta(draft)) / len(truth)
+    with open(os.path.join(data, "truth.json")) as fh:
+        all_truth = json.load(fh)["reads"]
+
+    def region_of(bp):
+        if bp == 0:
+            r, d, t = reads, draft, truth
+        else:
+            r, _, d = cut_region(data, os.path.join(work, f"map_{bp}"), bp)
+            t = truth_prefix(truth, read_fasta(d), scale)
+        with open(os.path.join(os.path.dirname(r), "reads2draft.paf"),
+                  "rb") as fh:
+            names = {line.split(b"\t")[0].decode() for line in fh}
+        return {"bp": bp, "reads": r, "draft": d, "truth": t,
+                "truth_reads": [x for x in all_truth if x["name"] in names],
+                "d_draft": chunked_distance(read_fasta(d), t, cpu)}
+
+    argv = ["-t", str(threads), "-m", "5", "-x", "-4", "-g", "-8", "-c",
+            "1", "--cudaaligner-batches", "1"]
+
+    def run(tag, region, rounds, seed_flag=None, flags=()):
+        """One counted CLI run; emits its map_rounds line and holds every
+        round's recall (>= 0.95) and precision (>= 0.90) against the
+        truth, its distance to draft / 10 and every kernel launched."""
+        out_path = os.path.join(work, f"mapped_{tag}.fasta")
+        with env_set(**dict.fromkeys(DEFAULT_PATH_KNOBS),
+                     RACON_TPU_TORCH_MAP_DEVICE_SEED=seed_flag), \
+                mapping_spy() as calls:
+            pol, wall, launches = counted_polish(
+                cli, argv + ["--rounds", str(rounds), *flags,
+                             region["reads"], region["draft"]], out_path,
+                mapped=True)
+        out = read_bytes(out_path)
+        # what each round wrote: the next round's targets, then the output
+        drafts = [c["targets"][0] for c in calls[1:]] + \
+            [out.split(b"\n")[1]]
+        cuts = [c["launches_before"] for c in calls] + [launches]
+        per_round = []
+        for i, rep in enumerate(pol.rounds_report):
+            rec, prec = recall_precision(calls[i]["overlaps"],
+                                         region["truth_reads"])
+            per_round.append({
+                **rep, "recall": round(rec, 4), "precision": round(prec, 4),
+                "distance": chunked_distance(drafts[i], region["truth"],
+                                             cpu),
+                "launches": {k: cuts[i + 1][k] - cuts[i][k]
+                             for k in launches}})
+        emit("map_rounds", run=tag, rounds=rounds,
+             draft_bp=region["bp"] or "all",
+             reads=len(region["truth_reads"]), argv=argv,
+             seed=seed_flag or "device", wall_s=round(wall, 3),
+             per_round=per_round, launches=launches,
+             secondary_dropped=int(pol.metrics.value(
+                 "map_secondary_dropped")),
+             card_states=pol.card_states, draft_distance=region["d_draft"])
+        for r in per_round:
+            if r["distance"] > region["d_draft"] / 10 or \
+                    r["recall"] < 0.95 or r["precision"] < 0.90:
+                raise RuntimeError(f"map_rounds {tag} round {r['round']}: "
+                                   f"distance {r['distance']} (draft "
+                                   f"{region['d_draft']}), recall "
+                                   f"{r['recall']}, precision "
+                                   f"{r['precision']}")
+        for name, n in launches.items():
+            # numpy builds the words when DEVICE_SEED=0: no seed launch
+            if (n == 0) != (name == "seed_words" and seed_flag == "0"):
+                raise RuntimeError(f"map_rounds {tag}: {n} {name} "
+                                   "launches")
+        return {"launches": launches, "calls": calls, "drafts": drafts}
+
+    mpath = os.path.join(work, "mapped.metrics.json")
+    main = run("main", region_of(0), 2,
+               flags=["--metrics-json", mpath])
+    keep_files(keep, mpath)
+    cut = region_of(MAP_CUT_BP)
+    card = run("cut_rounds1", cut, 1)
+    numpy_seed = run("cut_rounds2_numpy", cut, 2, seed_flag="0")
+    same = {"overlaps": card["calls"][0]["overlaps"]
+            == numpy_seed["calls"][0]["overlaps"],
+            "bytes": card["drafts"][0] == numpy_seed["drafts"][0]}
+    emit("map_seed_bytes", draft_bp=MAP_CUT_BP, round1_identical=same)
+    if not all(same.values()):
+        raise RuntimeError(f"map_seed_bytes: --rounds 1 (card words) and "
+                           f"round 1 of --rounds 2 (numpy words) differ: "
+                           f"{same}")
+    return {"seed": seed, "launches": main["launches"]}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--genome-len", type=int, default=4_641_652)
     ap.add_argument("--threads", type=int, default=os.cpu_count() or 8)
-    ap.add_argument("--only", choices=["band", "wfa", "default", "traced"],
+    ap.add_argument("--only", choices=["band", "wfa", "default", "traced",
+                                       "map"],
                     default=None,
                     help="band / wfa: env, build, dataset, align_check and "
                     "band_card / wfa_card only; default: env, build, "
                     "dataset, polish_default and pipeline_bytes only; "
                     "traced: env, build, dataset, the staged polish, "
-                    "traced and long_cap only; then exit 0 without the "
-                    "result line")
+                    "traced and long_cap only; map: env, build, dataset "
+                    "and map_rounds only; then exit 0 without the result "
+                    "line")
     ap.add_argument("--keep", default=None,
                     help="directory to copy the traced runs' traces and "
                     "reports to (default: none kept)")
@@ -1514,13 +1904,16 @@ def main(argv=None) -> int:
                    "-8", "-c", "1", "--cudaaligner-batches", "1", reads,
                    paf, draft]
     out_path = os.path.join(work, "polished.fasta")
-    if args.only in (None, "default"):
+    if args.only in (None, "default", "map"):
         truth = read_fasta(os.path.join(data, "genome.fasta"))
         d_draft = chunked_distance(read_fasta(draft), truth, cpu)
     if args.only is not None:
         if args.only == "default":
             default_path(cli, cpu, work, reads, paf, draft, truth, d_draft,
                          args.threads, args.keep)
+        elif args.only == "map":
+            map_rounds(cli, cpu, work, data, reads, draft, truth,
+                       args.threads, dev, args.keep, quality=True)
         elif args.only == "traced":
             with env_set(**STAGED_ENV):
                 _, wall, launches = counted_polish(cli, argv_polish,
@@ -1625,6 +2018,10 @@ def main(argv=None) -> int:
     default_path(cli, cpu, work, reads, paf, draft, truth, d_draft,
                  args.threads, args.keep)
 
+    # ---- map_rounds, map_seed_bytes (no PAF: the mapper, counted) --------
+    mapped = map_rounds(cli, cpu, work, data, reads, draft, truth,
+                        args.threads, dev, args.keep)
+
     # ---- native_compare (outside the counted run) -----------------------
     sample = [w for w in region_windows if engine.fits([w])][:200]
     dev_res = engine.consensus_batch(sample, True)
@@ -1641,10 +2038,10 @@ def main(argv=None) -> int:
 
     # ---- kernels ---------------------------------------------------------
     emit("kernels", run_s=round(time.perf_counter() - t_run, 3),
-         status={name: "ok" for name in launches})
+         status={name: "ok" for name in mapped["launches"]})
     if args.work is None:
         shutil.rmtree(work)
-    wfa, band = acheck["wfa"], acheck["band"]
+    wfa, band, seed = acheck["wfa"], acheck["band"], mapped["seed"]
     print(card)
     print(json.dumps({"kernels": [{
         "name": "poa_full", "route": "cuda",
@@ -1671,7 +2068,14 @@ def main(argv=None) -> int:
                            acheck["tiny"]["band_max_abs_err"]),
         "ms": band["kernel_ms"], "plain_ms": band["plain_ms"],
         "bound_ms": band["bound_ms"], "bound_by": band["bound_by"],
-        "library_ms": None}]}))
+        "library_ms": None}, {
+        "name": "seed_words", "route": "cuda",
+        "source": "racon_tpu_torch/cuda/csrc/seed_words.cu",
+        "replaces": "racon_tpu/tpu/seedmatch.py:30",
+        "launches": mapped["launches"]["seed_words"],
+        "max_abs_err": seed["max_abs_err"], "ms": seed["kernel_ms"],
+        "plain_ms": seed["plain_ms"], "bound_ms": seed["bound_ms"],
+        "bound_by": seed["bound_by"], "library_ms": seed["library_ms"]}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -2,11 +2,13 @@
 
 The port of the JAX package ``racon_tpu`` to an NVIDIA H100: the same
 host pipeline (parse, overlap filter, breaking-point alignment,
-windowing, per-window POA consensus, stitching), with the overlap
-alignment and the per-window POA consensus computed by CUDA C++ kernels
-written for Hopper (``racon_tpu_torch/cuda/csrc/``).  What the kernels
-leave (over-length or uncertified pairs, rejected windows) runs on the
-native CPU engines.
+windowing, per-window POA consensus, stitching) and its internal
+overlap discovery over N rounds (``racon_tpu_torch/overlap``), with the
+overlap alignment, the per-window POA consensus and the mapper's seed
+words computed by CUDA C++ kernels written for Hopper
+(``racon_tpu_torch/cuda/csrc/``).  What the kernels leave (over-length
+or uncertified pairs, rejected windows) runs on the native CPU
+engines.
 
 Entry points run on the card unless the caller passes
 ``device="cpu"`` (CLI: ``--device cpu``); a card that is asked for and

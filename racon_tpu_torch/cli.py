@@ -1,7 +1,12 @@
 """Command-line interface (reference: src/main.cpp).
 
 racon's one-shot contract: three positional inputs (sequences,
-overlaps, target sequences), polished FASTA on stdout.  ``-c`` keeps
+overlaps, target sequences), polished FASTA on stdout.  Two positionals
+(sequences, target sequences) discover the overlaps internally
+(``racon_tpu_torch/overlap``), and ``--rounds N`` polishes N rounds,
+re-mapping the reads against each round's draft, as the JAX package's
+CLI does (racon_tpu/cli.py:314-327); ``run`` is an alias of the
+one-shot form.  ``-c`` keeps
 racon's optional-argument behaviour (bare -c means 1,
 src/main.cpp:111-123) and offloads the POA stage to the card;
 ``--cudaaligner-batches`` offloads the overlap alignment; ``--device
@@ -12,6 +17,7 @@ Chrome trace of the run and ``--metrics-json`` its run report
 package's CLI does (racon_tpu/cli.py:393-444).
 
     python -m racon_tpu_torch.cli [options] <sequences> <overlaps> <targets>
+    python -m racon_tpu_torch.cli [run] [options] [--rounds N] <sequences> <targets>
 """
 
 from __future__ import annotations
@@ -21,17 +27,20 @@ import sys
 
 from racon_tpu_torch import __version__, obs, resolve_device
 from racon_tpu_torch.core.overlap import InvalidInputError
-from racon_tpu_torch.core.polisher import PolisherType, create_polisher
+from racon_tpu_torch.core.polisher import PolisherType
 from racon_tpu_torch.io.parsers import (MalformedInputError,
                                         UnsupportedFormatError)
 from racon_tpu_torch.obs import flight as obs_flight
 from racon_tpu_torch.obs import provenance
+from racon_tpu_torch.overlap.rounds import polish_rounds
 
 USAGE = """usage: racon_tpu_torch [options ...] <sequences> <overlaps> <target sequences>
+       racon_tpu_torch [run] [options ...] [--rounds N] <sequences> <target sequences>
 
     <sequences>  FASTA/FASTQ (gzip allowed) reads used for correction
     <overlaps>   MHAP/PAF/SAM (gzip allowed) overlaps of reads and
-                 targets
+                 targets; left out, the reads are mapped against the
+                 targets internally (RACON_TPU_TORCH_MAP_* knobs)
     <target sequences>  FASTA/FASTQ (gzip allowed) sequences to correct
 
     options:
@@ -41,9 +50,9 @@ USAGE = """usage: racon_tpu_torch [options ...] <sequences> <overlaps> <target s
         -w, --window-length <int>  default 500
         -q, --quality-threshold <float>  default 10.0
         -e, --error-threshold <float>    default 0.3
-                                   (these three, --cudapoa-batches
-                                   and --cudaaligner-batches also as
-                                   --window-length=<int> etc.)
+                                   (these three, --cudapoa-batches,
+                                   --cudaaligner-batches and --rounds
+                                   also as --window-length=<int> etc.)
         -T, --no-trimming          do not trim the consensus windows
         -m, --match <int>          default 3
         -x, --mismatch <int>       default -5
@@ -55,6 +64,9 @@ USAGE = """usage: racon_tpu_torch [options ...] <sequences> <overlaps> <target s
         --cudaaligner-batches <int>  default 0: overlap alignment on
                                    the card (pairs over 16384 bases
                                    stay on the CPU)
+        --rounds <int>             default 1: polish N rounds, each
+                                   later round re-mapping the reads
+                                   against the previous round's draft
         --device <cuda|cpu>        default cuda
         --trace <path>             write a Chrome trace of the run
                                    (Perfetto, chrome://tracing); also
@@ -73,7 +85,7 @@ def parse_args(argv):
             "mismatch": -5, "gap": -4, "threads": 1,
             "type": PolisherType.kC, "drop_unpolished": True,
             "cuda_poa_batches": 0, "cuda_banded_alignment": False,
-            "cuda_aligner_batches": 0, "device": None,
+            "cuda_aligner_batches": 0, "device": None, "rounds": 1,
             # the environment twins keep library and CLI runs on one
             # switch
             "trace": os.environ.get("RACON_TPU_TORCH_TRACE") or None,
@@ -91,6 +103,7 @@ def parse_args(argv):
                   "-t": ("threads", int), "--threads": ("threads", int),
                   "--cudaaligner-batches": ("cuda_aligner_batches", int),
                   "--cudapoa-batches": ("cuda_poa_batches", int),
+                  "--rounds": ("rounds", int),
                   "--device": ("device", str),
                   "--trace": ("trace", str),
                   "--metrics-json": ("metrics_json", str)}
@@ -98,7 +111,8 @@ def parse_args(argv):
     # with an optional value, --cudapoa-batches, only there)
     eq_opts = ("--window-length", "--quality-threshold",
                "--error-threshold", "--cudapoa-batches",
-               "--cudaaligner-batches", "--trace", "--metrics-json")
+               "--cudaaligner-batches", "--rounds", "--trace",
+               "--metrics-json")
     positionals = []
     i, n = 0, len(argv)
     while i < n:
@@ -159,6 +173,7 @@ def _log_run_summary(polisher, opts) -> None:
               file=sys.stderr)
     print("[racon_tpu_torch::] host budget: "
           f"parse {float(m.value('host.parse_s')):.2f} s, "
+          f"map {float(m.value('host.map_s')):.2f} s, "
           f"bp decode {float(m.value('host.bp_decode_s')):.2f} s, "
           f"fragment {float(m.value('host.fragment_s')):.2f} s, "
           f"stitch {float(m.value('host.stitch_s')):.2f} s, "
@@ -172,6 +187,7 @@ def _report_details(polisher, device) -> dict:
         return {str(k): v for k, v in getattr(polisher, name, {}).items()}
 
     return {"device": str(device),
+            "rounds": getattr(polisher, "rounds_report", []),
             "stage_walls": {k: round(v, 6)
                             for k, v in polisher.stage_walls.items()},
             "poa_split_detail": getattr(polisher, "poa_split_detail", {}),
@@ -183,18 +199,25 @@ def _report_details(polisher, device) -> dict:
 
 
 def main(argv=None, out=None):
-    """Run one polish; writes FASTA to ``out`` (default stdout) and
-    returns the polisher (its stage walls and kernel counters).  Then,
+    """Run one polish of ``--rounds`` rounds; writes FASTA to ``out``
+    (default stdout) and returns the last round's polisher (its stage
+    walls, kernel counters and ``rounds_report``).  Then,
     with ``--metrics-json``, the run report and, with ``--trace``, the
     trace; with ``RACON_TPU_TORCH_FLIGHT_DUMP`` set, the flight ring,
     which an unhandled exception also dumps there."""
     argv = sys.argv[1:] if argv is None else argv
+    if argv and argv[0] == "run":
+        # the one-shot form by name: `run reads draft` maps and polishes
+        argv = argv[1:]
     try:
         opts, inputs = parse_args(argv)
     except ValueError as exc:
         print(f"[racon_tpu_torch::] error: {exc}!", file=sys.stderr)
         raise SystemExit(1)
-    if len(inputs) < 3:
+    if len(inputs) == 2:
+        # two positionals = reads + draft: internal overlap discovery
+        inputs = [inputs[0], None, inputs[1]]
+    elif len(inputs) < 3:
         print("[racon_tpu_torch::] error: missing input file(s)!",
               file=sys.stderr)
         print(USAGE, end="", file=sys.stderr)
@@ -208,24 +231,24 @@ def main(argv=None, out=None):
     if flight_dump:
         obs_flight.FLIGHT.install_dump_on_crash(flight_dump)
     obs_flight.FLIGHT.record(
-        "run", inputs=[os.path.basename(p) for p in inputs[:3]],
-        threads=opts["threads"], device=str(device))
+        "run", inputs=[os.path.basename(p) for p in inputs[:3]
+                       if p is not None],
+        rounds=opts["rounds"], threads=opts["threads"], device=str(device))
     try:
         with obs.span("racon_tpu_torch.run", cat="stage"):
-            polisher = create_polisher(
+            polished, polisher = polish_rounds(
                 inputs[0], inputs[1], inputs[2], opts["type"],
                 opts["window_length"], opts["quality_threshold"],
                 opts["error_threshold"], opts["trim"], opts["match"],
                 opts["mismatch"], opts["gap"], opts["threads"],
+                rounds=opts["rounds"],
+                drop_unpolished=opts["drop_unpolished"],
                 cuda_poa_batches=opts["cuda_poa_batches"],
                 cuda_banded_alignment=opts["cuda_banded_alignment"],
                 cuda_aligner_batches=opts["cuda_aligner_batches"],
                 device=device)
-            try:
-                polisher.initialize()
-                polished = polisher.polish(opts["drop_unpolished"])
-            finally:
-                polisher.close()
+            # polish_rounds hands the last polisher back open
+            polisher.close()
         polisher.total_log()
         _log_run_summary(polisher, opts)
     except (InvalidInputError, UnsupportedFormatError,

@@ -48,7 +48,7 @@ class PolisherType(enum.Enum):
     kF = 1  # fragment (read) error correction
 
 
-def create_polisher(sequences_path: str, overlaps_path: str,
+def create_polisher(sequences_path: str, overlaps_path: Optional[str],
                     target_path: str, type_: PolisherType,
                     window_length: int, quality_threshold: float,
                     error_threshold: float, trim: bool, match: int,
@@ -61,13 +61,17 @@ def create_polisher(sequences_path: str, overlaps_path: str,
     ``cuda_poa_batches > 0`` offloads the POA stage and
     ``cuda_aligner_batches > 0`` the overlap alignment to the card
     (``device``, default cuda), the reference's --cudapoa-batches and
-    --cudaaligner-batches."""
+    --cudaaligner-batches.  ``overlaps_path=None`` selects internal
+    overlap discovery: ``initialize`` maps the reads against the
+    targets (``racon_tpu_torch/overlap``) and feeds the overlaps through
+    the same filter and align path as a parsed file's."""
     if not isinstance(type_, PolisherType):
         raise InvalidInputError("invalid polisher type!")
     if window_length == 0:
         raise InvalidInputError("invalid window length!")
     sparser = create_sequence_parser(sequences_path)
-    oparser = create_overlap_parser(overlaps_path)
+    oparser = (create_overlap_parser(overlaps_path)
+               if overlaps_path is not None else None)
     tparser = create_sequence_parser(target_path)
     args = (sparser, oparser, tparser, type_, window_length,
             quality_threshold, error_threshold, trim, match, mismatch, gap,
@@ -79,6 +83,28 @@ def create_polisher(sequences_path: str, overlaps_path: str,
                             cuda_aligner_batches=cuda_aligner_batches,
                             device=device)
     return Polisher(*args)
+
+
+class _MappedOverlapSource:
+    """Parser-shaped view over internally discovered overlaps, so that
+    ``_load_overlaps`` runs its transmute/filter loop unchanged over
+    the mapper's output: one chunk, then done."""
+
+    def __init__(self, records: List[Overlap]):
+        self._records = records
+        self._done = False
+
+    def reset(self) -> None:
+        self._done = False
+
+    def close(self) -> None:
+        self._records = []
+
+    def parse(self, dst: List[Overlap], max_bytes: int) -> bool:
+        if not self._done:
+            dst.extend(self._records)
+            self._done = True
+        return False
 
 
 class Polisher:
@@ -206,10 +232,18 @@ class Polisher:
                         "sequences")
         self.logger.log()
 
+        # parsed overlaps bill the parse budget; mapped ones the map
+        # stage (host.map_s and stage_walls["map"], out of "parse")
+        mapping = self.oparser is None
         with obs_trace.span("racon_tpu_torch.load_overlaps", cat="stage",
-                            metric="host.parse_s", registry=self.metrics):
+                            metric=("host.map_s" if mapping
+                                    else "host.parse_s"),
+                            registry=self.metrics):
             overlaps = self._load_overlaps(name_to_id, id_to_id, has_data,
                                            has_reverse_data)
+        if mapping:
+            self.stage_walls["map"] = float(
+                self.metrics.value("host.map_s", 0.0))
         if not overlaps:
             raise InvalidInputError("empty overlap set!")
         self.logger.log("[racon_tpu_torch::Polisher::initialize] loaded "
@@ -222,7 +256,7 @@ class Polisher:
                 lambda args: args[0].transmute(*args[1:]),
                 [(s, has_name[j], has_data[j], has_reverse_data[j])
                  for j, s in enumerate(self.sequences)]))
-        self._wall("parse", t0)
+        self._wall("parse", t0 + self.stage_walls.get("map", 0.0))
 
         t0 = obs_trace.now()
         with obs_trace.span("racon_tpu_torch.align_stage", cat="stage",
@@ -239,9 +273,57 @@ class Polisher:
         self.logger.log("[racon_tpu_torch::Polisher::initialize] "
                         "transformed data into windows")
 
+    def _map_device(self):
+        """Where the mapper builds its seed words: numpy on the host,
+        as the JAX package does.  The CUDA polisher seeds on its own
+        device."""
+        from racon_tpu_torch.overlap import minimizers
+
+        return minimizers.NUMPY
+
+    def _discover_overlaps(self) -> List[Overlap]:
+        """Internal mapping: run the minimap-lite mapper over the
+        loaded reads and targets and return PAF-shaped Overlap records
+        for the transmute/filter loop a parsed file takes.  Reads
+        deduplicated into targets are not mapped: their only admissible
+        overlap (self vs self) is what the ``q_id == t_id`` filter drops
+        anyway."""
+        from racon_tpu_torch.obs import decision as obs_decision
+        from racon_tpu_torch.overlap import chain as overlap_chain
+
+        params = overlap_chain.params_from_env(self._map_device())
+        targets = self.sequences[:self._targets_size]
+        queries = self.sequences[self._targets_size:]
+        # contig polishing keeps one overlap per read: the mapper's best
+        # chain, not the longest stretched span (overlap/chain.py)
+        raw, stats = overlap_chain.map_sequences(
+            queries, targets, params=params,
+            primary_only=self.type == PolisherType.kC)
+        dropped = stats["chains_admitted"] - len(raw)
+        self.metrics.add("map_queries", len(queries))
+        self.metrics.add("map_overlaps", len(raw))
+        self.metrics.add("map_chains_admitted", stats["chains_admitted"])
+        self.metrics.add("map_chains_rejected", stats["chains_rejected"])
+        self.metrics.add("map_secondary_dropped", dropped)
+        obs_decision.DECISIONS.record(
+            "map_chain", queries=len(queries), targets=len(targets),
+            overlaps=len(raw), admitted=stats["chains_admitted"],
+            rejected=stats["chains_rejected"], secondary_dropped=dropped,
+            masked_entries=stats["masked_entries"], knobs=params.doc(),
+            seed_device=str(params.seed_device))
+        self.logger.log(
+            f"[racon_tpu_torch::Polisher::initialize] mapped "
+            f"{len(queries)} reads -> {len(raw)} overlaps "
+            f"({stats['chains_rejected']} chains rejected)")
+        return raw
+
     def _load_overlaps(self, name_to_id, id_to_id, has_data,
                        has_reverse_data) -> List[Overlap]:
         """Stream overlaps, transmute, and filter (polisher.cpp:283-354)."""
+        if self.oparser is None:
+            # internal mapping: the same loop, fed from an in-memory
+            # single-chunk source instead of a file parser
+            self.oparser = _MappedOverlapSource(self._discover_overlaps())
         overlaps: List[Optional[Overlap]] = []
 
         def remove_invalid(begin: int, end: int) -> None:
@@ -511,10 +593,12 @@ class Polisher:
         ``host.share``, their share of the run wall; and each host
         stage's drift against its own learned per-unit rate."""
         host_s = sum(float(self.metrics.value(k, 0.0))
-                     for k in ("host.parse_s", "host.bp_decode_s",
-                               "host.fragment_s", "host.stitch_s"))
+                     for k in ("host.parse_s", "host.map_s",
+                               "host.bp_decode_s", "host.fragment_s",
+                               "host.stitch_s"))
         self.metrics.set("host.stage_s", round(host_s, 6))
         units = {"host.parse": len(self.sequences),
+                 "host.map": int(self.metrics.value("map_queries", 0)),
                  "host.bp_decode": len(self.sequences),
                  "host.fragment": len(self.windows),
                  "host.stitch": self._targets_size}
@@ -536,4 +620,5 @@ class Polisher:
         """Release the worker pool and the parsers' file handles."""
         self._pool.shutdown(wait=True)
         for parser in (self.sparser, self.oparser, self.tparser):
-            parser.close()
+            if parser is not None:
+                parser.close()

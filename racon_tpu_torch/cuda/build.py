@@ -25,7 +25,7 @@ ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 
 #: kernel sources, by library name
 SOURCES = {"poa_full": "poa_full.cu", "align_wfa": "align_wfa.cu",
-           "align_band": "align_band.cu"}
+           "align_band": "align_band.cu", "seed_words": "seed_words.cu"}
 
 _VP, _I = ctypes.c_void_p, ctypes.c_int
 #: argument types of each library's ``<name>_launch`` (pointers and the
@@ -34,6 +34,7 @@ SIGNATURES = {
     "poa_full": [_VP] * 10 + [ctypes.c_longlong] + [_I] * 16 + [_VP],
     "align_wfa": [_VP] * 9 + [_I] * 5 + [_VP],
     "align_band": [_VP] * 9 + [_I] * 7 + [_VP],
+    "seed_words": [_VP] * 3 + [ctypes.c_longlong, _I, _VP],
 }
 
 #: other C functions of a library: name -> (argument types, result)

@@ -32,6 +32,12 @@ cudapolisher.cpp:357-386); rejections are counted by fail code in
 ``poa_reject_counts``.  With ``cuda_poa_batches == 0`` the POA stage
 runs on the CPU engine.
 
+Mapping (no overlaps file): the mapper builds its seed words on this
+polisher's device (``_map_device``): the seed-word kernel on a card,
+its plain version with ``device="cpu"``;
+``RACON_TPU_TORCH_MAP_DEVICE_SEED=0`` builds them with numpy.  The
+words, and so the bytes, are the same everywhere.
+
 Streaming (``RACON_TPU_TORCH_PIPELINE``, default on with -c): windows
 are created before the align stage and a ``WindowLedger`` routes each
 overlap's fragments as soon as its breaking points exist; a speculative
@@ -262,6 +268,11 @@ class CudaPolisher(Polisher):
     def poa_spec_megabatches(self) -> int:
         """Megabatches the speculative consumer launched."""
         return int(self.metrics.value("poa_spec_megabatches"))
+
+    def _map_device(self):
+        """The mapper seeds on this polisher's device: the seed-word
+        kernel on a card, its plain version on the CPU."""
+        return self.device
 
     def _poa_caps(self):
         """Power-of-two graph/layer caps scaled from the window length:

@@ -39,6 +39,17 @@ KNOWN_KNOBS = {
     "RACON_TPU_TORCH_TRACE": "",
     "RACON_TPU_TORCH_METRICS_JSON": "",
     "RACON_TPU_TORCH_FLIGHT_DUMP": "",
+    # the mapper (overlap/chain.py), read when no overlaps file is
+    # given: k/w/occ/min-chain/band/max-gap change which overlaps exist;
+    # DEVICE_SEED only moves the word build (1: the polisher's device,
+    # numpy for the plain CPU Polisher; 0: numpy), with equal words
+    "RACON_TPU_TORCH_MAP_K": "13",
+    "RACON_TPU_TORCH_MAP_W": "5",
+    "RACON_TPU_TORCH_MAP_OCC": "64",
+    "RACON_TPU_TORCH_MAP_MIN_CHAIN": "4",
+    "RACON_TPU_TORCH_MAP_BAND": "500",
+    "RACON_TPU_TORCH_MAP_MAX_GAP": "10000",
+    "RACON_TPU_TORCH_MAP_DEVICE_SEED": "1",
 }
 
 _probe_cache: list = []
