@@ -2,7 +2,8 @@
 """On-card smoke run of the PyTorch/CUDA port (racon_tpu_torch).
 
     python3 chip_smoke.py [--genome-len N] [--threads T] [--work DIR]
-                          [--only band|wfa|default|traced|map]
+                          [--only band|wfa|default|traced|map|cache|
+                                  fusion]
                           [--keep DIR]
 
 Needs one CUDA card.  Phases, one JSON line each:
@@ -18,13 +19,18 @@ Needs one CUDA card.  Phases, one JSON line each:
                 30x, 8 kb reads, seed 7) and cuts a 120 kb region of
                 it whose windows and overlaps feed the checks below;
 4. kernel_check 32 real windows at stock caps (V 2048, LP 1024,
-                WB 256) plus tiny windows (a forced reject and the three
+                WB 256), timed, 8 of them spread over the depth
+                range (every fourth by layer count, the deepest
+                among them) also alone, plus
+                tiny windows (a forced reject and the three
                 stress windows of tools/poa_windows.py, which take the
                 kernel's device-memory pred and row paths and its
                 second pass): the POA
                 kernel and its plain PyTorch version on the card must
                 agree exactly on cons[:len], mout[:, :5] and the
-                shared-memory path counts; then a full-card batch, the
+                shared-memory path counts on the 8 and the tiny
+                windows, and the 8's kernel rows must equal theirs in
+                the batch of 32; then a full-card batch, the
                 region's fitting windows tiled to >= 4x the kernel's
                 resident blocks, every replica equal to its original,
                 with ms, windows/s, ring hit rate and phase shares; and
@@ -55,7 +61,8 @@ Needs one CUDA card.  Phases, one JSON line each:
                 history-bytes floor and the step/traceback split; every
                 replica must equal its original and 8 originals the
                 plain version;
-6. polish       the port's CLI (-m 5 -x -4 -g -8 -c 1
+6. polish       (the cache phase's cold run, below) the port's CLI
+                (-m 5 -x -4 -g -8 -c 1
                 --cudaaligner-batches 1) on the whole set, staged and
                 all on the card (RACON_TPU_TORCH_PIPELINE=0 and both
                 *_DEVICE_ONLY=1): all three kernels launched, CPU
@@ -94,6 +101,27 @@ Needs one CUDA card.  Phases, one JSON line each:
                 ledger's ready high-water, the pipeline overlap, the
                 stored rates and the distance (<= draft / 10); every
                 kernel launched;
+   cache        the result cache on the staged polish of the whole
+                set: cache off, then on and cold (the wall difference is
+                the host cost of keying; ``cache_host_s`` the keying,
+                lookups and fills), a warm repeat in the same process, a
+                cold fill with RACON_TPU_TORCH_CACHE_PERSIST=<work>/results
+                and, after ``cache.reset()``, a restart that reads the
+                segments: every run's wall, launches, cache counters,
+                bytes and disk hits; all five byte-identical at the
+                staged distance, the warm and restart runs hit;
+   fusion       the device executor on the card: two 1 Mb cuts of the
+                set (the first and the second Mb), staged, cache off,
+                each alone, then both in threads as two registered
+                tenants, fused: each one's bytes equal to its solo run,
+                fused_cross_tenant > 0, the fused launches against the
+                solo launches summed, the walls, the occupancy
+                histogram, and the process DEVICE_UTIL's dispatches equal
+                to the launches; then a poisoned unit: tenant b submits a
+                WFA chunk with a pair past the rung's length beside
+                tenant a's first chunk, the fused dispatch fails, a's
+                unit retries alone on the card and a's polish keeps its
+                bytes, and only b's collect raises;
    pipeline_bytes  the first 1 Mb of the set at the second run's
                 stored rates, pinned: pipeline off, then on, then on and
                 traced; the FASTA must be byte-identical;
@@ -108,7 +136,10 @@ Needs one CUDA card.  Phases, one JSON line each:
                 the whole set: per round wall,
                 map_s, overlaps, recall >= 0.95 and precision >= 0.90
                 against truth.json, distance <= draft / 10, stage
-                walls and launches, every kernel launched; then on the
+                walls, launches and result-cache hits (round 2 reuses
+                round 1's unmoved windows and pairs), every kernel
+                launched, and the seed kernel's main-path ms from its
+                device lane; then on the
                 first 1 Mb --rounds 1 with the words built on the card
                 and --rounds 2 with them built by numpy, whose round 1
                 must map the same overlaps and write the same bytes
@@ -127,10 +158,16 @@ band_card (wfa_card), then exits 0 without the result line (a few
 minutes: a trial of one align kernel); ``--only default`` runs phases
 1-3, polish_default and pipeline_bytes the same way, ``--only traced``
 phases 1-3, the staged polish, traced and long_cap, ``--only map``
-phases 1-3 and map_rounds.  ``--keep DIR`` copies the
+phases 1-3 and map_rounds, ``--only cache`` phases 1-3, cache and
+``cache_default`` (the default path with the cache off, on, on, off,
+twice; the same bytes), ``--only fusion`` phases 1-3 and fusion.  ``--keep DIR`` copies the
 traced runs' traces and reports to DIR (open a trace in Perfetto).  The
 calibration store is off (``RACON_TPU_TORCH_CACHE_DIR=""``) outside
-polish_default.
+polish_default.  The result cache is on (the default), and every
+counted polish starts from an empty in-process cache with the
+persistent tier off, as a fresh process would (inside one ``--rounds
+2`` run the cache carries from round 1 to round 2); the cache phase
+alone sets it otherwise.
 """
 
 from __future__ import annotations
@@ -238,17 +275,21 @@ def chunked_distance(seq: bytes, truth: bytes, cpu, step: int = 50_000,
                for i in range(len(cuts_t) - 1))
 
 
-def cut_region(src: str, dst: str, length: int) -> tuple:
-    """The draft's first ``length`` bases with the reads whose PAF
-    records fall inside them, as (reads, paf, draft) paths."""
+def cut_region(src: str, dst: str, length: int, start: int = 0) -> tuple:
+    """The draft's ``length`` bases from ``start`` with the reads whose
+    PAF records fall inside them (target coordinates shifted by
+    ``start``), as (reads, paf, draft) paths."""
     os.makedirs(dst, exist_ok=True)
-    draft = read_fasta(os.path.join(src, "draft.fasta"))[:length]
+    draft = read_fasta(os.path.join(src, "draft.fasta"))[start:start
+                                                          + length]
     names, paf_lines = set(), []
     with open(os.path.join(src, "reads2draft.paf"), "rb") as fh:
         for line in fh:
             f = line.split(b"\t")
-            if int(f[8]) <= length:
+            if int(f[7]) >= start and int(f[8]) <= start + length:
                 f[6] = b"%d" % length
+                f[7] = b"%d" % (int(f[7]) - start)
+                f[8] = b"%d" % (int(f[8]) - start)
                 names.add(f[0])
                 paf_lines.append(b"\t".join(f))
     paths = tuple(os.path.join(dst, n) for n in
@@ -849,10 +890,28 @@ def ring_hit_rate(stats) -> float:
     return hits / max(1, hits + misses)
 
 
+#: of kernel_check's 32 real windows, how many its plain version also
+#: computes (~7 s a window on the card's host): every fourth by depth,
+#: the deepest among them (see plain_subset)
+PLAIN_WINDOWS = 8
+
+
+def plain_subset(windows) -> list:
+    """Indices of PLAIN_WINDOWS windows spread over the depth range:
+    sorted by layer count, every (len / PLAIN_WINDOWS)-th, ending at
+    the deepest, so the plain version meets the deep, pred-row-heavy
+    windows as well as the shallow ones."""
+    order = sorted(range(len(windows)),
+                   key=lambda i: (len(windows[i].sequences), i))
+    step = len(windows) // PLAIN_WINDOWS
+    return sorted(order[step - 1::step][:PLAIN_WINDOWS])
+
+
 def poa_check(fitting, dev, stock) -> tuple:
-    """Phase 4a: the POA kernel against its plain version on 32 real
-    windows and on the tiny windows; returns (check dict, kernel ms,
-    plain ms) of the 32."""
+    """Phase 4a: the POA kernel timed on 32 real windows, and held
+    against its plain version on PLAIN_WINDOWS of them (plain_subset) and on
+    the tiny windows; returns (check dict, kernel ms of the 32, plain
+    ms of the PLAIN_WINDOWS)."""
     import torch
     from racon_tpu_torch import convert
     from racon_tpu_torch.core.window import WindowType
@@ -869,23 +928,40 @@ def poa_check(fitting, dev, stock) -> tuple:
     pk = convert.pack_windows(windows32, 1024, 2048)
     inputs = convert.to_device(pk.seqs, pk.wts, pk.meta, pk.nlay,
                                pk.bblen, dev)
-    kst, pst = stats_for(inputs), stats_for(inputs)
+    kst = stats_for(inputs)
     kern = pf.poa_full(*inputs, **stock, stats=kst)
     torch.cuda.synchronize()
     ms = statistics.median(cuda_ms(lambda: pf.poa_full(*inputs, **stock),
                                    5))
+    sub = plain_subset(windows32)
+    head = convert.pack_windows([windows32[i] for i in sub], 1024, 2048)
+    hin = convert.to_device(head.seqs, head.wts, head.meta, head.nlay,
+                            head.bblen, dev)
+    hk, hp = stats_for(hin), stats_for(hin)
+    hkern = pf.poa_full(*hin, **stock, stats=hk)
+    torch.cuda.synchronize()
     t0 = time.perf_counter()
-    plain = pf.poa_full_reference(*inputs, **stock, stats=pst)
+    plain = pf.poa_full_reference(*hin, **stock, stats=hp)
     torch.cuda.synchronize()
     plain_ms = 1e3 * (time.perf_counter() - t0)
-    mismatches, max_err = compare(kern, plain)
-    stats_bad = int((kst != pst).any(dim=1).sum())
+    mismatches, max_err = compare(hkern, plain)
+    # the subset's kernel rows in the batch of 32 equal those in its own
+    # batch (each window's result is its own)
+    rows = torch.tensor(sub, device=kern[0].device)
+    batch_bad, _ = compare([t[rows] for t in kern], hkern)
+    mismatches += batch_bad
+    stats_bad = int((hk != hp).any(dim=1).sum())
     rank_steps = int(kern[1][:, 4].sum())
     pred_rows = int(kst[:, :2].sum())
     bms, by = bound(nbytes(*inputs), nbytes(*kern),
                     poa_ops(rank_steps * stock["wb"], pred_rows,
                             stock["wb"]))
-    check = {"windows": len(windows32),
+    depths = [len(w.sequences) for w in windows32]
+    check = {"windows": len(windows32), "plain_windows": sub,
+             "plain_depths": [depths[i] for i in sub],
+             "depths_min_median_max": [min(depths),
+                                       int(statistics.median(depths)),
+                                       max(depths)],
              "batch": int(inputs[0].shape[0]), "mismatches": mismatches,
              "stats_mismatches": stats_bad, "max_abs_err": max_err,
              "kernel_ms": round(ms, 4), "plain_ms": round(plain_ms, 1),
@@ -1135,14 +1211,19 @@ def launch_counts(mapped: bool = False) -> dict:
     return out
 
 
-def counted_polish(cli, argv, out_path, mapped: bool = False):
+def counted_polish(cli, argv, out_path, mapped: bool = False,
+                   cold: bool = True):
     """One CLI polish with every kernel's launch count set to 0 just
-    before it; returns (polisher, wall s, launches)."""
+    before it, from an empty in-process result cache unless ``cold`` is
+    False; returns (polisher, wall s, launches)."""
+    from racon_tpu_torch import cache
     from racon_tpu_torch.cuda import align_band as ab
     from racon_tpu_torch.cuda import align_wfa as aw
     from racon_tpu_torch.cuda import poa_full as pf
     from racon_tpu_torch.cuda import seed_words as sw
 
+    if cold:
+        cache.reset()
     before = card_state()
     pf.LAUNCHES = aw.LAUNCHES = ab.LAUNCHES = sw.LAUNCHES = 0
     t0 = time.perf_counter()
@@ -1344,6 +1425,290 @@ def long_cap_phase(cli, work, threads) -> None:
 def read_bytes(path: str) -> bytes:
     with open(path, "rb") as fh:
         return fh.read()
+
+
+#: the result cache's process counters a cache run reads (deltas)
+CACHE_COUNTERS = ("cache_hit", "cache_miss", "cache_fill", "cache_evict",
+                  "cache_host_s")
+
+
+def cache_phase(cli, cpu, work, argv, truth) -> tuple:
+    """The result cache on the staged polish of the whole set (see the
+    module docstring): off, cold, warm, a persistent fill and a
+    restart, each with its wall, launches, cache counters, bytes held
+    and disk hits; all byte-identical, at the staged distance; the warm
+    and restart runs must hit.  Returns the cold run, the main path's
+    counted staged polish: (polisher, wall s, launches, FASTA path,
+    distance to the truth)."""
+    from racon_tpu_torch import cache
+    from racon_tpu_torch.obs import REGISTRY
+
+    results = os.path.join(work, "results")
+    shutil.rmtree(results, ignore_errors=True)
+    plan = (("off", {"RACON_TPU_TORCH_CACHE": "0"}, True),
+            ("cold", {}, True),
+            ("warm", {}, False),
+            ("persist_fill", {"RACON_TPU_TORCH_CACHE_PERSIST": results},
+             True),
+            ("restart", {"RACON_TPU_TORCH_CACHE_PERSIST": results}, True))
+    runs, outs, pols = {}, {}, {}
+    for tag, env, cold in plan:
+        out_path = os.path.join(work, f"cache_{tag}.fasta")
+        before = {k: REGISTRY.value(k, 0) for k in CACHE_COUNTERS}
+        with env_set(**STAGED_ENV, **env):
+            pol, wall, launches = counted_polish(cli, argv, out_path,
+                                                 cold=cold)
+            st = cache.stats()
+        outs[tag] = read_bytes(out_path)
+        pols[tag] = (pol, wall, launches)
+        runs[tag] = {
+            "wall_s": round(wall, 3), "launches": launches,
+            **{k: round(REGISTRY.value(k, 0) - before[k], 6)
+               for k in CACHE_COUNTERS},
+            "cache_bytes": st.get("bytes", 0),
+            "entries": st.get("entries", 0),
+            "disk_hits": st.get("disk_hits", 0),
+            "stage_walls_s": {k: round(v, 3)
+                              for k, v in pol.stage_walls.items()},
+            "host": {k: round(v, 3) for k, v in
+                     pol.metrics.snapshot()["counters"].items()
+                     if k.startswith("host.")}}
+    same = all(o == outs["off"] for o in outs.values())
+    d_pol = chunked_distance(read_fasta(os.path.join(
+        work, "cache_off.fasta")), truth, cpu)
+    emit("cache", argv=argv[:-3], identical=same, polished_distance=d_pol,
+         keying_wall_s=round(runs["cold"]["wall_s"]
+                             - runs["off"]["wall_s"], 3),
+         segments=sorted(os.listdir(results)), runs=runs)
+    if not same:
+        raise RuntimeError("cache: off, cold, warm, persistent fill and "
+                           "restart gave different FASTA")
+    if runs["warm"]["cache_hit"] <= 0 or runs["restart"]["disk_hits"] <= 0:
+        raise RuntimeError(f"cache: warm hits {runs['warm']['cache_hit']}, "
+                           f"restart disk hits "
+                           f"{runs['restart']['disk_hits']}")
+    return (*pols["cold"], os.path.join(work, "cache_cold.fasta"), d_pol)
+
+
+#: off-on-on-off blocks of cache_default
+CACHE_DEFAULT_BLOCKS = 2
+
+
+def cache_default(cli, work, argv) -> None:
+    """``--only cache``: the default path (built-in rates) with the
+    result cache off, on, on, off in turns, CACHE_DEFAULT_BLOCKS times,
+    each from an empty cache: walls, stage walls, ``cache_host_s`` and
+    ``host.*``; the same bytes every time.  Each adjacent off/on pair
+    gives one on-minus-off wall (the keying cost of a one-shot run),
+    reported with their mean and spread."""
+    from racon_tpu_torch.obs import REGISTRY
+
+    runs, outs = [], set()
+    modes = ("0", "1", "1", "0") * CACHE_DEFAULT_BLOCKS
+    for k, mode in enumerate(modes):
+        out_path = os.path.join(work, f"cache_default{k}.fasta")
+        before = REGISTRY.value("cache_host_s", 0)
+        with env_set(RACON_TPU_TORCH_CACHE=mode,
+                     **dict.fromkeys(DEFAULT_PATH_KNOBS)):
+            pol, wall, launches = counted_polish(cli, argv, out_path)
+        outs.add(read_bytes(out_path))
+        runs.append({
+            "cache": mode, "wall_s": round(wall, 3), "launches": launches,
+            "cache_host_s": round(REGISTRY.value("cache_host_s", 0)
+                                  - before, 3),
+            "stage_walls_s": {a: round(b, 3)
+                              for a, b in pol.stage_walls.items()},
+            "host": {a: round(b, 3) for a, b in
+                     pol.metrics.snapshot()["counters"].items()
+                     if a.startswith("host.")}})
+    walls = [r["wall_s"] for r in runs]
+    diffs = [round(walls[k + 1] - walls[k] if modes[k] == "0"
+                   else walls[k] - walls[k + 1], 3)
+             for k in range(0, len(walls), 2)]
+    emit("cache_default", identical=len(outs) == 1, runs=runs,
+         on_minus_off_s=diffs,
+         on_minus_off_mean_s=round(statistics.mean(diffs), 3),
+         on_minus_off_sd_s=round(statistics.stdev(diffs), 3))
+    if len(outs) != 1:
+        raise RuntimeError("cache_default: cache off and on gave "
+                           "different FASTA")
+
+
+#: draft bases of each of the fusion phase's two cuts
+FUSE_CUT_BP = 1_000_000
+#: the fused run's fusion window (RACON_TPU_TORCH_FUSE_WAIT_MS)
+FUSE_WAIT_MS = 200
+
+
+def fusion_phase(work, data, threads) -> None:
+    """The device executor on the card (see the module docstring): two
+    1 Mb cuts alone, then fused as two tenants, then a poisoned unit
+    beside tenant a's first WFA chunk."""
+    import threading
+
+    from racon_tpu_torch.core.polisher import PolisherType, create_polisher
+    from racon_tpu_torch.cuda import align_band as ab
+    from racon_tpu_torch.cuda import align_wfa as aw
+    from racon_tpu_torch.cuda import executor
+    from racon_tpu_torch.cuda import poa_full as pf
+    from racon_tpu_torch.cuda.polisher import CudaPolisher
+    from racon_tpu_torch.obs import REGISTRY
+    from racon_tpu_torch.obs.devutil import DEVICE_UTIL
+    from racon_tpu_torch.obs.flight import FLIGHT
+
+    cuts = {name: cut_region(data, os.path.join(work, f"fuse_{name}"),
+                             FUSE_CUT_BP, start=k * FUSE_CUT_BP)
+            for k, name in enumerate("ab")}
+
+    def polish(name, tenant=None):
+        pol = create_polisher(*cuts[name], PolisherType.kC, 500, 10.0, 0.3,
+                              True, 5, -4, -8, threads, cuda_poa_batches=1,
+                              cuda_aligner_batches=1)
+        pol._executor_tenant = tenant
+        t0 = time.perf_counter()
+        try:
+            pol.initialize()
+            out = b"".join(b">" + q.name.encode() + b"\n" + q.data + b"\n"
+                           for q in pol.polish(True))
+        finally:
+            pol.close()
+        return out, time.perf_counter() - t0
+
+    def zero():
+        pf.LAUNCHES = aw.LAUNCHES = ab.LAUNCHES = 0
+
+    fused_keys = ("fusion_dispatches", "fusion_units_fused",
+                  "fused_megabatches", "fused_cross_tenant")
+    ex = executor.get_executor()
+    solo, fused, errors = {}, {}, []
+    with env_set(**STAGED_ENV, RACON_TPU_TORCH_CACHE="0"):
+        for name in cuts:
+            zero()
+            out, wall = polish(name)
+            solo[name] = {"bytes": out, "wall_s": round(wall, 3),
+                          "launches": launch_counts()}
+
+        def job(name):
+            try:
+                fused[name] = polish(name, tenant=name)
+            except BaseException as exc:      # raised below
+                errors.append(exc)
+
+        # the tenants enter the POA stage together, as concurrent jobs
+        # at one stage do, so their megabatches meet in the executor
+        barrier = threading.Barrier(len(cuts), timeout=300)
+        stage = CudaPolisher.generate_consensuses
+
+        def together(self):
+            barrier.wait()
+            return stage(self)
+
+        before = {k: REGISTRY.value(k, 0) for k in fused_keys}
+        for name in cuts:
+            ex.register_tenant(name)
+        zero()
+        DEVICE_UTIL.reset()
+        t0 = time.perf_counter()
+        try:
+            # a full chunk or megabatch dispatches at once (it is at its
+            # cap); a partial one waits up to this window for the other
+            # tenant's unit of the same geometry
+            CudaPolisher.generate_consensuses = together
+            with env_set(RACON_TPU_TORCH_FUSE_WAIT_MS=str(FUSE_WAIT_MS)):
+                workers = [threading.Thread(target=job, args=(n,))
+                           for n in cuts]
+                for w in workers:
+                    w.start()
+                for w in workers:
+                    w.join(900)
+                    if w.is_alive():
+                        raise RuntimeError("fusion: a tenant's polish "
+                                           "hung")
+        finally:
+            CudaPolisher.generate_consensuses = stage
+            for name in cuts:
+                ex.release_tenant(name)
+        fused_wall = time.perf_counter() - t0
+        launches = launch_counts()
+        if errors:
+            raise errors[0]
+        lanes = {e: u["n_dispatches"]
+                 for e, u in DEVICE_UTIL.snapshot().items()}
+        counters = {k: REGISTRY.value(k, 0) - before[k] for k in fused_keys}
+        occupancy = REGISTRY.snapshot()["histograms"].get(
+            "fusion_occupancy")
+        same = {n: fused[n][0] == solo[n]["bytes"] for n in cuts}
+        solo_sum = {k: sum(solo[n]["launches"][k] for n in cuts)
+                    for k in launches}
+
+        # a poisoned unit: tenant b's WFA chunk holds a pair longer than
+        # the rung's padded length (encoding it raises), submitted just
+        # before tenant a's first chunk, with a window that keeps b's
+        # unit waiting for a's
+        seen = FLIGHT.stats()["recorded"]
+        poisoned = {}
+        orig = ex.align_wfa
+
+        def spy(queries, targets, lq, emax, device, tenant=None, **kw):
+            if tenant == "a" and not poisoned:
+                bad = b"A" * (lq + 1)
+                # a cap past a's chunk, so the one batch takes both
+                poisoned["collect"] = orig([bad], [bad[:lq]], lq, emax,
+                                           device, tenant="b",
+                                           cap=kw.get("cap", 0) + 1)
+                coll = orig(queries, targets, lq, emax, device,
+                            tenant=tenant, **kw)
+                # the fused dispatch has formed: b leaves, so a's later
+                # submissions pass through
+                while ex.pending_units():
+                    time.sleep(0.001)
+                ex.release_tenant("b")
+                return coll
+            return orig(queries, targets, lq, emax, device, tenant=tenant,
+                        **kw)
+
+        for name in cuts:
+            ex.register_tenant(name)
+        ex.align_wfa = spy
+        cross0 = REGISTRY.value("fused_cross_tenant", 0)
+        try:
+            with env_set(RACON_TPU_TORCH_FUSE_WAIT_MS=str(FUSE_WAIT_MS)):
+                out_a, wall_a = polish("a", tenant="a")
+        finally:
+            del ex.align_wfa
+            ex.release_tenant("a")
+        raised = None
+        try:
+            poisoned["collect"]()
+        except ValueError as exc:
+            raised = f"{type(exc).__name__}: {exc}"
+        retries = sorted(e.get("tenant") for e in FLIGHT.snapshot(
+            last=FLIGHT.stats()["recorded"] - seen)
+            if e["kind"] == "unit_retry")
+    poison = {"a_identical": out_a == solo["a"]["bytes"],
+              "a_wall_s": round(wall_a, 3), "b_raised": raised,
+              "unit_retries": retries,
+              "fused_cross_tenant": REGISTRY.value("fused_cross_tenant", 0)
+              - cross0}
+    emit("fusion", cut_bp=FUSE_CUT_BP, identical=same,
+         solo={n: {k: v for k, v in r.items() if k != "bytes"}
+               for n, r in solo.items()},
+         fused_wall_s=round(fused_wall, 3),
+         fused_walls_s={n: round(fused[n][1], 3) for n in cuts},
+         fused_launches=launches, solo_launches_summed=solo_sum,
+         device_util_dispatches=lanes, counters=counters,
+         fusion_occupancy=occupancy, poison=poison)
+    if not all(same.values()) or counters["fused_cross_tenant"] <= 0:
+        raise RuntimeError(f"fusion: identical {same}, cross-tenant fused "
+                           f"dispatches {counters['fused_cross_tenant']}")
+    for eng, kernel in ENGINE_KERNEL.items():
+        if lanes.get(eng, 0) != launches[kernel]:
+            raise RuntimeError(f"fusion: {eng} {lanes.get(eng, 0)} "
+                               f"DEVICE_UTIL dispatches, {launches[kernel]} "
+                               "launches")
+    if not (poison["a_identical"] and raised and retries == ["a", "b"]
+            and poison["fused_cross_tenant"] == 1):
+        raise RuntimeError(f"fusion: poisoned unit {poison}")
 
 
 def default_path(cli, cpu, work, reads, paf, draft, truth, d_draft,
@@ -1742,6 +2107,8 @@ def map_rounds(cli, cpu, work, data, reads, draft, truth, threads, dev,
                 "truth_reads": [x for x in all_truth if x["name"] in names],
                 "d_draft": chunked_distance(read_fasta(d), t, cpu)}
 
+    from racon_tpu_torch.obs.devutil import DEVICE_UTIL
+
     argv = ["-t", str(threads), "-m", "5", "-x", "-4", "-g", "-8", "-c",
             "1", "--cudaaligner-batches", "1"]
 
@@ -1750,6 +2117,8 @@ def map_rounds(cli, cpu, work, data, reads, draft, truth, threads, dev,
         round's recall (>= 0.95) and precision (>= 0.90) against the
         truth, its distance to draft / 10 and every kernel launched."""
         out_path = os.path.join(work, f"mapped_{tag}.fasta")
+        # the seed words' device lanes land in the process DEVICE_UTIL
+        DEVICE_UTIL.reset()
         with env_set(**dict.fromkeys(DEFAULT_PATH_KNOBS),
                      RACON_TPU_TORCH_MAP_DEVICE_SEED=seed_flag), \
                 mapping_spy() as calls:
@@ -1772,11 +2141,15 @@ def map_rounds(cli, cpu, work, data, reads, draft, truth, threads, dev,
                                              cpu),
                 "launches": {k: cuts[i + 1][k] - cuts[i][k]
                              for k in launches}})
+        seed_lane = DEVICE_UTIL.snapshot().get("seed_words", {})
         emit("map_rounds", run=tag, rounds=rounds,
              draft_bp=region["bp"] or "all",
              reads=len(region["truth_reads"]), argv=argv,
              seed=seed_flag or "device", wall_s=round(wall, 3),
              per_round=per_round, launches=launches,
+             cache_hit_by_round=[r["cache_hit"] for r in per_round],
+             seed_lane_ms=round(seed_lane.get("busy_s", 0.0) * 1e3, 3),
+             seed_lane_dispatches=seed_lane.get("n_dispatches", 0),
              secondary_dropped=int(pol.metrics.value(
                  "map_secondary_dropped")),
              card_states=pol.card_states, draft_distance=region["d_draft"])
@@ -1793,6 +2166,9 @@ def map_rounds(cli, cpu, work, data, reads, draft, truth, threads, dev,
             if (n == 0) != (name == "seed_words" and seed_flag == "0"):
                 raise RuntimeError(f"map_rounds {tag}: {n} {name} "
                                    "launches")
+        if seed_lane.get("n_dispatches", 0) != launches["seed_words"]:
+            raise RuntimeError(f"map_rounds {tag}: {seed_lane} seed-word "
+                               f"lanes, {launches['seed_words']} launches")
         return {"launches": launches, "calls": calls, "drafts": drafts}
 
     mpath = os.path.join(work, "mapped.metrics.json")
@@ -1818,15 +2194,16 @@ def main(argv=None) -> int:
     ap.add_argument("--genome-len", type=int, default=4_641_652)
     ap.add_argument("--threads", type=int, default=os.cpu_count() or 8)
     ap.add_argument("--only", choices=["band", "wfa", "default", "traced",
-                                       "map"],
+                                       "map", "cache", "fusion"],
                     default=None,
                     help="band / wfa: env, build, dataset, align_check and "
                     "band_card / wfa_card only; default: env, build, "
                     "dataset, polish_default and pipeline_bytes only; "
                     "traced: env, build, dataset, the staged polish, "
                     "traced and long_cap only; map: env, build, dataset "
-                    "and map_rounds only; then exit 0 without the result "
-                    "line")
+                    "and map_rounds only; cache / fusion: env, build, "
+                    "dataset and that phase only; then exit 0 without the "
+                    "result line")
     ap.add_argument("--keep", default=None,
                     help="directory to copy the traced runs' traces and "
                     "reports to (default: none kept)")
@@ -1840,8 +2217,13 @@ def main(argv=None) -> int:
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "false)", file=sys.stderr)
         return 2
-    # the calibration store stays off unless a phase names its own
+    # the calibration store stays off unless a phase names its own; the
+    # result cache is on, in process only, unless the cache phase says
+    # otherwise
     os.environ["RACON_TPU_TORCH_CACHE_DIR"] = ""
+    for knob in ("RACON_TPU_TORCH_CACHE", "RACON_TPU_TORCH_CACHE_PERSIST",
+                 "RACON_TPU_TORCH_FUSE", "RACON_TPU_TORCH_FUSE_FORCE"):
+        os.environ.pop(knob, None)
     from racon_tpu_torch import cli, convert
     from racon_tpu_torch.core.polisher import (PolisherType,
                                                create_polisher)
@@ -1904,7 +2286,7 @@ def main(argv=None) -> int:
                    "-8", "-c", "1", "--cudaaligner-batches", "1", reads,
                    paf, draft]
     out_path = os.path.join(work, "polished.fasta")
-    if args.only in (None, "default", "map"):
+    if args.only in (None, "default", "map", "cache"):
         truth = read_fasta(os.path.join(data, "genome.fasta"))
         d_draft = chunked_distance(read_fasta(draft), truth, cpu)
     if args.only is not None:
@@ -1914,6 +2296,11 @@ def main(argv=None) -> int:
         elif args.only == "map":
             map_rounds(cli, cpu, work, data, reads, draft, truth,
                        args.threads, dev, args.keep, quality=True)
+        elif args.only == "cache":
+            cache_phase(cli, cpu, work, argv_polish, truth)
+            cache_default(cli, work, argv_polish)
+        elif args.only == "fusion":
+            fusion_phase(work, data, args.threads)
         elif args.only == "traced":
             with env_set(**STAGED_ENV):
                 _, wall, launches = counted_polish(cli, argv_polish,
@@ -1956,12 +2343,11 @@ def main(argv=None) -> int:
     # ---- align_check, band_card, wfa_card --------------------------------
     acheck = align_phases(region, dev, cpu)
 
-    # ---- polish (the main path, counted) --------------------------------
-    with env_set(**STAGED_ENV):
-        polisher, wall, launches = counted_polish(cli, argv_polish,
-                                                  out_path)
+    # ---- cache, and polish (the main path, counted): the cache phase's
+    # cold run is the staged polish
+    polisher, wall, launches, out_path, d_pol = cache_phase(
+        cli, cpu, work, argv_polish, truth)
     eng = polisher.poa_engine
-    d_pol = chunked_distance(read_fasta(out_path), truth, cpu)
     rejects = sum(polisher.poa_reject_counts.values())
     eligible = polisher.poa_eligible_windows
     fallthrough = polisher.align_cpu_fallthrough
@@ -2013,6 +2399,9 @@ def main(argv=None) -> int:
     # ---- traced (the staged path again, traced) -------------------------
     traced_phase(cli, work, argv_polish, out_path, wall, args.keep)
     long_cap_phase(cli, work, args.threads)
+
+    # ---- fusion (the device executor across two tenants) ---------------
+    fusion_phase(work, data, args.threads)
 
     # ---- polish_default, pipeline_bytes (the default path, counted) ------
     default_path(cli, cpu, work, reads, paf, draft, truth, d_draft,

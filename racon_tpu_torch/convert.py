@@ -26,7 +26,13 @@ class PackedBatch:
     nlay: np.ndarray        # [B] int32 layers kept per window
     bblen: np.ndarray       # [B] int32 backbone length
     host_fail: List[bool]   # backbone over the caps: CPU re-polish
-    n_skipped: int          # layers dropped (too long or too deep)
+    skipped: List[int]      # per window: layers dropped (too long or
+                            # too deep)
+
+    @property
+    def n_skipped(self) -> int:
+        """Layers dropped over the batch."""
+        return sum(self.skipped)
 
 
 def order_layers(w, lcap: int, max_depth: int):
@@ -51,11 +57,11 @@ def pack_windows(windows, lcap: int, vcap: int,
     a power of two (at least 8) with inert 1-base 'A' windows; windows
     without qualities weigh every base 1."""
     n = len(windows)
-    layer_lists, n_skipped = [], 0
+    layer_lists, skipped = [], []
     for w in windows:
         kept, dropped = order_layers(w, lcap, max_depth)
         layer_lists.append(kept)
-        n_skipped += dropped
+        skipped.append(dropped)
     lp = lcap
     d1 = max(8, pow2_at_least(
         max((len(ll) for ll in layer_lists), default=0) + 1, 8))
@@ -86,7 +92,7 @@ def pack_windows(windows, lcap: int, vcap: int,
             begin, end = w.positions[li]
             full = 1 if (begin < offset and end > len(bb) - offset) else 0
             meta[b, d, :4] = (begin, end, full, len(s))
-    return PackedBatch(seqs, wts, meta, nlay, bblen, host_fail, n_skipped)
+    return PackedBatch(seqs, wts, meta, nlay, bblen, host_fail, skipped)
 
 
 def to_device(seqs, wts, meta, nlay, bblen, device):

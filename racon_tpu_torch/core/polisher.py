@@ -538,11 +538,48 @@ class Polisher:
     # consensus + polish (reference: src/polisher.cpp:485-547)
     # ------------------------------------------------------------------
 
+    def _consensus_cached(self, window, epoch=None):
+        """One window's consensus on the CPU engine through the result
+        cache (racon_tpu_torch/cache): a hit adopts the cached bytes, a
+        miss computes and fills.  Returns ``(polished flag, hit)``.
+        Windows under 3 layers bypass the cache (the backbone copy is
+        cheaper than a lookup).  The "cpu" key space is disjoint from
+        the POA kernel's: the two engines break ties independently."""
+        from racon_tpu_torch import cache as rcache
+
+        if len(window.sequences) < 3 or not rcache.enabled():
+            return window.generate_consensus(self.engine, self.trim), False
+        with REGISTRY.timer(rcache.HOST_S):
+            c = rcache.result_cache()
+            if epoch is None:
+                epoch = rcache.keying.engine_epoch()
+            key = rcache.keying.poa_key(
+                "cpu", (self.match, self.mismatch, self.gap), self.trim,
+                window, epoch)
+            v = c.get(key)
+        if v is not rcache.MISS:
+            cons, ok = v
+            window.consensus = cons
+            return bool(ok), True
+        ok = window.generate_consensus(self.engine, self.trim)
+        with REGISTRY.timer(rcache.HOST_S):
+            c.put(key, (window.consensus, ok))
+        return ok, False
+
+    @staticmethod
+    def _cache_epoch():
+        """The result cache's epoch, fetched once per stage (None when
+        the cache is off)."""
+        from racon_tpu_torch import cache as rcache
+
+        return rcache.keying.engine_epoch() if rcache.enabled() else None
+
     def generate_consensuses(self) -> List[bool]:
-        """Consensus of every window on the CPU engine; returns the
-        polished flags."""
+        """Consensus of every window on the CPU engine, through the
+        result cache; returns the polished flags."""
+        epoch = self._cache_epoch()
         return self._run_pooled(
-            [(lambda w=w: w.generate_consensus(self.engine, self.trim), ())
+            [(lambda w=w: self._consensus_cached(w, epoch)[0], ())
              for w in self.windows],
             "[racon_tpu_torch::Polisher::polish] generating consensus",
             "[racon_tpu_torch::Polisher::polish] generated consensus")

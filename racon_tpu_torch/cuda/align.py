@@ -43,13 +43,22 @@ def _timed(device, launch, util=None):
     return out, timer
 
 
+def _set_cycles(collect, meta) -> None:
+    """The kernel's per-pair [phase 1, phase 2] cycles (``meta[:, 2:4]``,
+    0 on the CPU) as ``collect.cycles`` and their sums as
+    ``collect.phase_cycles``."""
+    collect.cycles = meta[:, 2:4].astype(np.int64)
+    collect.phase_cycles = collect.cycles.sum(0).tolist()
+
+
 def wfa_dispatch(queries, targets, lq: int, emax: int, device,
                  util=None):
     """Launch one WFA chunk; ``collect()`` gives (tapes [n, entries]
     int64, entry counts, distances) with distances exact (<= emax) or
     ``BIG`` for rejected pairs; it also sets ``collect.phase_cycles``,
     the kernel's summed [wavefront steps, traceback] cycles
-    (``meta[:, 2:4]``, 0 on the CPU)."""
+    (``meta[:, 2:4]``, 0 on the CPU), and ``collect.cycles``, the same
+    per pair."""
     n = len(queries)
     q = torch.from_numpy(al.encode_batch(queries, lq, al.QPAD)).to(device)
     t = torch.from_numpy(al.encode_batch(targets, lq, al.TPAD)).to(device)
@@ -64,7 +73,7 @@ def wfa_dispatch(queries, targets, lq: int, emax: int, device,
         timer.record(f"device.align_wfa{emax}", "align_wfa", {"n": n})
         if (mt[:, 0] == aw.TOO_LONG).any():
             raise RuntimeError(f"align_wfa: a pair longer than lmax={lmax}")
-        collect.phase_cycles = mt[:, 2:4].astype(np.int64).sum(0).tolist()
+        _set_cycles(collect, mt)
         return tp, mt[:, 1], mt[:, 0]
 
     collect.kernel_ms = timer.kernel_ms
@@ -79,7 +88,8 @@ def band_dispatch(queries, targets, lq: int, lt: int, wb: int, device,
     diagonal.  ``collect()`` gives (moves [n, 16 * words] uint8, move
     counts, distances, ``BIG`` out of band); it also sets
     ``collect.phase_cycles``, the kernel's summed [DP, traceback]
-    cycles (``meta[:, 2:4]``, 0 on the CPU)."""
+    cycles (``meta[:, 2:4]``, 0 on the CPU), and ``collect.cycles``,
+    the same per pair."""
     n = len(queries)
     ctr = np.stack([
         centers[k] if centers is not None and centers[k] is not None
@@ -94,7 +104,7 @@ def band_dispatch(queries, targets, lq: int, lt: int, wb: int, device,
     def collect():
         mt = meta.cpu().numpy()
         timer.record(f"device.align_band{wb}", "align_band", {"n": n})
-        collect.phase_cycles = mt[:, 2:4].astype(np.int64).sum(0).tolist()
+        _set_cycles(collect, mt)
         return ab.unpack_moves(tape.cpu().numpy()), mt[:, 1], mt[:, 0]
 
     collect.kernel_ms = timer.kernel_ms

@@ -48,6 +48,15 @@ the stage's split assigns to the device, so the bytes equal the staged
 path's.  An error in the consumer is raised to the caller; it never
 turns into a CPU re-polish.
 
+Dispatch: every POA megabatch and align chunk goes through the
+process-wide device executor (``cuda/executor.py``), as the JAX
+package's TPUPolisher does: the result cache serves windows and pairs
+it already holds, and with two or more registered tenants in one
+process (``_executor_tenant``) their launches fuse.  A one-shot run is
+a passthrough.  A batch or chunk with any cache hit feeds no rate and
+no calhealth record.  The CPU engine's windows (the split's tail, the
+kernel's rejects) go through ``Polisher._consensus_cached``.
+
 Observability (the JAX package's counters and records,
 racon_tpu/tpu/polisher.py:183-193): the run's counters are
 ``MetricAttr`` entries of the per-run registry ``metrics``; the ladder
@@ -82,8 +91,8 @@ from racon_tpu_torch.cuda import align_band as ab
 from racon_tpu_torch.cuda import align_wfa as aw
 from racon_tpu_torch.cuda import aligner as al
 from racon_tpu_torch.cuda import devclock
+from racon_tpu_torch.cuda import executor
 from racon_tpu_torch.cuda import poa_full as pf
-from racon_tpu_torch.cuda.poa import CudaPoaBatchEngine
 from racon_tpu_torch.obs import MetricAttr
 from racon_tpu_torch.obs import calhealth as obs_calhealth
 from racon_tpu_torch.obs import trace as obs_trace
@@ -209,6 +218,11 @@ class CudaPolisher(Polisher):
         for attr in vars(CudaPolisher).values():
             if isinstance(attr, MetricAttr):
                 self.metrics.set(attr.name, 0)
+        #: the device executor's tenant (None: a one-shot run's
+        #: passthrough); a caller running several polishers in one
+        #: process sets it and registers it with
+        #: ``executor.get_executor().register_tenant``
+        self._executor_tenant = None
         self.poa_engine = None
         self.poa_reject_counts = {}
         self.poa_batch_size = 0
@@ -306,13 +320,20 @@ class CudaPolisher(Polisher):
         cap = self.MEGABATCH_CAP
         return min(size, cap) if cap > 0 else size
 
-    def _make_poa_engine(self) -> CudaPoaBatchEngine:
+    def _make_poa_engine(self) -> executor.PoaEngineHandle:
+        """A handle on the device executor's shared engine of this
+        configuration (racon_tpu/tpu/polisher.py:365-384).  Its
+        counters are this polisher's windows alone, its launches'
+        intervals go to ``device_util``, each submission carries the
+        megabatch size it was sized for, and ``_megabatch_size`` bounds
+        a fused batch at its own depth."""
         vcap, lcap = self._poa_caps()
-        return CudaPoaBatchEngine(
-            self.match, self.mismatch, self.gap, device=self.device,
-            vcap=vcap, pcap=16, lcap=lcap,
-            max_depth=self.MAX_DEPTH_PER_WINDOW,
-            banded=self.cuda_banded_alignment, util=self.device_util)
+        return executor.get_executor().poa_handle(
+            self.match, self.mismatch, self.gap, vcap=vcap, pcap=16,
+            lcap=lcap, max_depth=self.MAX_DEPTH_PER_WINDOW,
+            banded=self.cuda_banded_alignment, device=self.device,
+            tenant=self._executor_tenant, cap=self.MAX_BATCH,
+            util=self.device_util, size_at=self._megabatch_size)
 
     def _tail_workers(self, device_only_env: str) -> int:
         """CPU workers of a hybrid stage: all threads but one, none
@@ -524,8 +545,8 @@ class CudaPolisher(Polisher):
                 try:
                     if eng.fits(batch):
                         inflight.append(
-                            (take, eng.consensus_batch_async(batch,
-                                                             self.trim)))
+                            (take, eng.consensus_batch_async(
+                                batch, self.trim, cap=self._spec_cap)))
                 except Exception as exc:
                     self._record_stream_error(exc)
                 self.spec_walls["dispatch"] += _now() - t0
@@ -712,6 +733,7 @@ class CudaPolisher(Polisher):
         lock = threading.Lock()
         meas = {"dev": [], "cpu_w": 0.0, "cpu_u": 0.0}
         stop = []
+        epoch = self._cache_epoch()
 
         def cpu_worker():
             while True:
@@ -720,8 +742,12 @@ class CudaPolisher(Polisher):
                         return
                     i = work.pop()
                 t1 = time.thread_time()
-                flags[i] = self.windows[i].generate_consensus(self.engine,
-                                                              self.trim)
+                flags[i], hit = self._consensus_cached(self.windows[i],
+                                                       epoch)
+                if hit:
+                    # a lookup's time says nothing of the CPU engine's
+                    # rate
+                    continue
                 with lock:
                     meas["cpu_w"] += time.thread_time() - t1
                     meas["cpu_u"] += unit_of[i]
@@ -736,21 +762,26 @@ class CudaPolisher(Polisher):
 
         def apply(idxs, collect):
             nonlocal cpu_mark, mark
-            k0 = engine.kernel_ms
             results = collect()
             now = time.thread_time()
-            busy = _busy_s(engine.kernel_ms - k0, now - cpu_mark)
+            busy = _busy_s(collect.kernel_ms(), now - cpu_mark)
             u_batch = sum(unit_of[i] for i in idxs)
-            meas["dev"].append((busy, u_batch))
             cpu_mark = now
-            # the megabatch's busy time against what the split's rate
-            # predicted for it
-            obs_calhealth.observe(
-                "poa", calibrate.predict_chunk_wall("poa", u_batch, r_dev),
-                busy, registry=self.metrics)
+            # a megabatch the cache served in part ran fewer windows
+            # than its units claim: it feeds neither the rate nor
+            # calhealth (racon_tpu/tpu/polisher.py:975)
+            record = not collect.cache_hits
+            if record:
+                meas["dev"].append((busy, u_batch))
+                # the busy time against what the split's rate predicted
+                obs_calhealth.observe(
+                    "poa", calibrate.predict_chunk_wall("poa", u_batch,
+                                                        r_dev),
+                    busy, registry=self.metrics)
             t1 = _now()
             obs_trace.TRACER.add_span("poa.megabatch", mark, t1, cat="poa",
-                                      args={"n": len(idxs)})
+                                      args={"n": len(idxs),
+                                            "recorded": record})
             mark = t1
             for i, (cons, ok) in zip(idxs, results):
                 if cons is None:
@@ -772,7 +803,7 @@ class CudaPolisher(Polisher):
                     break
                 self._note_poa_dispatch()
                 pipe.append((idxs, engine.consensus_batch_async(
-                    [self.windows[i] for i in idxs], self.trim)))
+                    [self.windows[i] for i in idxs], self.trim, cap=size)))
                 while len(pipe) >= depth:
                     apply(*pipe.popleft())
             while pipe:
@@ -793,8 +824,8 @@ class CudaPolisher(Polisher):
                                        if v) + ")")
             t0 = _now()
             cpu_flags = list(self._pool.map(
-                lambda i: self.windows[i].generate_consensus(
-                    self.engine, self.trim), failed))
+                lambda i: self._consensus_cached(self.windows[i],
+                                                 epoch)[0], failed))
             for i, f in zip(failed, cpu_flags):
                 flags[i] = f
             self._wall("cpu_repolish", t0)
@@ -1082,13 +1113,14 @@ class CudaPolisher(Polisher):
 
     def _run_rung(self, name: str, idx, per_pair: int, dispatch,
                   accept, units, rates) -> set:
-        """Dispatch ``idx`` in chunks, two in flight; ``accept(i, k,
-        results)`` decides and records each pair.  Every chunk's wall
-        and busy time (collect to collect) and ``units(sub, results)``
-        go to ``align_chunks`` for the device rates, and its busy time
-        against the prediction at ``rates[kernel]`` (stage, rate) to the
-        chunk's decision record and to calhealth.  Returns the pairs not
-        certified."""
+        """Dispatch ``idx`` in chunks of ``_chunk_pairs(per_pair)``, two
+        in flight (``dispatch(sub, chunk size)``); ``accept(i, k,
+        results)`` decides and records each pair.  Every chunk's busy
+        time against the prediction at ``rates[kernel]`` (stage, rate)
+        goes to its decision record, and, unless the cache served some
+        of its pairs, with its wall and ``units(sub, results)`` to
+        ``align_chunks`` for the device rates and to calhealth.
+        Returns the pairs not certified."""
         size = self._chunk_pairs(per_pair)
         chunks = [idx[c:c + size] for c in range(0, len(idx), size)]
         engine = "wfa" if name.startswith("wfa") else "band"
@@ -1105,14 +1137,20 @@ class CudaPolisher(Polisher):
             now, cpu_now = _now(), time.thread_time()
             busy = _busy_s(collect.kernel_ms(), cpu_now - cpu_mark)
             n_units = float(units(sub, res))
-            self.align_chunks.append((kernel, name, now - mark, busy,
-                                      n_units))
             pred = calibrate.predict_chunk_wall(stage, n_units, rate)
-            obs_calhealth.observe(kernel, pred, busy,
-                                  registry=self.metrics)
+            hits = getattr(collect, "cache_hits", 0)
+            if not hits:
+                # a chunk the cache served in part ran fewer units than
+                # it claims: no rate, no calhealth
+                # (racon_tpu/tpu/polisher.py:1738, :1840)
+                self.align_chunks.append((kernel, name, now - mark, busy,
+                                          n_units))
+                obs_calhealth.observe(kernel, pred, busy,
+                                      registry=self.metrics)
             DECISIONS.record("align_chunk", engine=engine, rung=rung,
                              n=len(sub), predicted_s=round(pred, 6),
-                             measured_s=round(busy, 6))
+                             measured_s=round(busy, 6),
+                             cache_hits=hits or None)
             obs_trace.TRACER.add_span(f"align.chunk.{name}", mark, now,
                                       cat="align", args={"n": len(sub)})
             dev_s = collect.device_s()
@@ -1133,7 +1171,8 @@ class CudaPolisher(Polisher):
             self._stream_decode_flush()
 
         self.align_dispatches[kernel] += len(chunks)
-        align.run_pipelined(chunks, dispatch, consume)
+        align.run_pipelined(chunks, lambda sub: dispatch(sub, size),
+                            consume)
         obs_trace.TRACER.add_span(f"align.rung.{name}", t_rung, _now(),
                                   cat="align", args={"n": len(idx),
                                                      "chunks": len(chunks)})
@@ -1209,6 +1248,10 @@ class CudaPolisher(Polisher):
         def sub_pairs(sub):
             return [queries[i] for i in sub], [targets[i] for i in sub]
 
+        # every chunk through the device executor (result cache,
+        # fusion across tenants; racon_tpu/tpu/polisher.py:1704-1714)
+        ex = executor.get_executor()
+
         for emax in sorted(groups):
             idx = groups[emax]
 
@@ -1226,9 +1269,10 @@ class CudaPolisher(Polisher):
 
             still = self._run_rung(
                 f"wfa{emax}", idx, aw.wfa_per_pair_bytes(wbd, emax),
-                lambda sub, emax=emax: align.wfa_dispatch(
+                lambda sub, cap, emax=emax: ex.align_wfa(
                     *sub_pairs(sub), wbd, emax, self.device,
-                    util=self.device_util), accept_wfa,
+                    tenant=self._executor_tenant, util=self.device_util,
+                    cap=cap), accept_wfa,
                 lambda sub, res, emax=emax: sum(
                     min(int(d), emax) for d in res[2]), rates)
             # WFA rejects go on to the band rungs
@@ -1272,10 +1316,11 @@ class CudaPolisher(Polisher):
 
             still = self._run_rung(
                 f"band{wb}", idx, ab.band_per_pair_bytes(bd, bd, wb),
-                lambda sub, wb=wb: align.band_dispatch(
+                lambda sub, cap, wb=wb: ex.align_band(
                     *sub_pairs(sub), bd, bd, wb, self.device,
                     centers=[emp_knots(i) if i in use_emp else None
-                             for i in sub], util=self.device_util),
+                             for i in sub], tenant=self._executor_tenant,
+                    util=self.device_util, cap=cap),
                 accept_band,
                 lambda sub, res: sum(len(queries[i]) for i in sub), rates)
             self._rung_left(f"band{wb}", still, last=wb == last)

@@ -25,6 +25,8 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from racon_tpu_torch.cuda.devclock import DispatchTimer
+
 MAX_K = 15
 
 #: kernel launches made by ``seed_words`` (plain-version calls excluded)
@@ -94,11 +96,18 @@ def kmer_words(codes: np.ndarray, k: int, device
                ) -> Tuple[np.ndarray, np.ndarray]:
     """numpy uint8 codes -> numpy uint32 (fw, rv), built on ``device``
     (a torch device): the kernel on a card, the plain version on the
-    CPU.  At least k codes."""
+    CPU.  At least k codes.  The build's interval is a
+    ``device.seed_words`` span of the trace's device lane and a
+    ``seed_words`` interval of ``obs.DEVICE_UTIL`` (cuda/devclock.py)."""
     t = torch.from_numpy(np.ascontiguousarray(codes, dtype=np.uint8))
     dev = torch.device(device)
     if dev.type != "cpu":
         t = t.to(dev, non_blocking=False)
+    timer = DispatchTimer(dev)
+    timer.mark()
     fw, rv = seed_words(t, k)
-    return (fw.cpu().numpy().view(np.uint32),
-            rv.cpu().numpy().view(np.uint32))
+    timer.mark()
+    out = (fw.cpu().numpy().view(np.uint32),
+           rv.cpu().numpy().view(np.uint32))
+    timer.record("device.seed_words", "seed_words", {"n": int(t.shape[0])})
+    return out

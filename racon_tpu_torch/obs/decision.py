@@ -12,6 +12,8 @@ writes (fields beyond the envelope at the call sites):
 * ``align_cpu_fallthrough`` -- pairs the last rung left for the CPU
 * ``poa_split``     -- the POA stage's device/CPU cut and its rates
 * ``poa_reject``    -- a window the POA kernel rejected, by fail code
+* ``unit_retry``    -- the device executor retried a unit alone, on the
+  card, after the fused dispatch it rode failed (also a flight event)
 
 Envelope (as the flight recorder's)::
 

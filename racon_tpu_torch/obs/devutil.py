@@ -12,8 +12,9 @@ version's host interval.  This module folds them into per-engine totals:
 * ``idle_s``    -- horizon minus busy: time the engine left the card idle
 * ``util``      -- busy / horizon
 
-Engines are the three device consumers: ``align_wfa``, ``align_band``,
-``poa``.  The merge is streaming (O(1) per interval): an engine's
+Engines are the device consumers: ``align_wfa``, ``align_band``,
+``poa``, and the mapper's ``seed_words`` (recorded in the process
+``DEVICE_UTIL``).  The merge is streaming (O(1) per interval): an engine's
 dispatches run on one stream and complete in order, so each interval
 only extends the frontier.  :meth:`DeviceUtil.publish` mirrors the
 totals into a Registry as gauges for ``--metrics-json``.

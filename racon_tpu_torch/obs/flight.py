@@ -13,6 +13,13 @@ Envelope::
 
     {"seq": 412, "t": 17.003215, "kind": "run", ...}
 
+Kinds beyond ``run`` / ``run_done`` / ``crash``: the device executor
+records ``cache_hit`` (a submission the result cache served in part or
+whole: kind, hits, misses, items), ``fused_dispatch`` (one shared
+dispatch: kind, units, items, occupancy, tenants, jobs) and
+``unit_retry`` (a unit retried alone after its fused dispatch failed:
+kind, tenant, items, jobs, error).
+
 ``t`` is seconds since the trace epoch (obs/trace.py), so flight events
 and trace spans share one timebase.  :data:`ENABLED` and :data:`RING`
 are module constants (tests patch them).  Recording feeds only

@@ -36,6 +36,26 @@ KNOWN_KNOBS = {
     "RACON_TPU_TORCH_WFA_MAX_MB": "256",
     "RACON_TPU_TORCH_CACHE_DIR": "",
     "RACON_TPU_TORCH_RECALIBRATE": "",
+    # result cache (racon_tpu_torch/cache/): off-switch, in-process LRU
+    # budget in MB, and the shared persistent tier ("1" =
+    # <cache_root()>/results, any other non-empty value = that
+    # directory).  Policy only: they never change output bytes, so
+    # cache/keying.py leaves them out of the engine epoch that keys
+    # every cached result.
+    "RACON_TPU_TORCH_CACHE": "1",
+    "RACON_TPU_TORCH_CACHE_MB": "256",
+    "RACON_TPU_TORCH_CACHE_PERSIST": "",
+    # the device executor (racon_tpu_torch/cuda/executor.py): fusion
+    # off-switch, fusion with one tenant too, the fusion window, the
+    # per-tenant in-flight quota, and the adaptive fusion window.  The
+    # adaptive window moves when a bucket dispatches, never what it
+    # computes, so cache/keying.py leaves it out of the epoch; the
+    # others stay in it, as in the JAX package.
+    "RACON_TPU_TORCH_FUSE": "1",
+    "RACON_TPU_TORCH_FUSE_FORCE": "0",
+    "RACON_TPU_TORCH_FUSE_WAIT_MS": "5",
+    "RACON_TPU_TORCH_SERVE_TENANT_QUOTA": "2",
+    "RACON_TPU_TORCH_FUSE_ADAPT": "0",
     "RACON_TPU_TORCH_TRACE": "",
     "RACON_TPU_TORCH_METRICS_JSON": "",
     "RACON_TPU_TORCH_FLIGHT_DUMP": "",

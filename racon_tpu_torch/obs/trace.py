@@ -64,6 +64,13 @@ class Tracer:
     def enabled(self) -> bool:
         return self._enabled or bool(os.environ.get(TRACE_ENV))
 
+    @property
+    def capturing(self) -> bool:
+        """True when events are recorded at all.  Only the trace file
+        records them in this package, so it equals :attr:`enabled`;
+        callers that build costly ``args`` test it first."""
+        return self.enabled
+
     def enable(self, path: str) -> None:
         self._enabled = True
         self._path = path
@@ -99,14 +106,25 @@ class Tracer:
                 self._name_track(tid, lane)
         return tid
 
+    @staticmethod
+    def _args(args, jobs):
+        """``args`` tagged with the job context, and with ``jobs`` (the
+        job ids an event spans, as a fused dispatch does) unless they
+        name their own."""
+        args = _tag_args(args)
+        if jobs:
+            args = {"jobs": [int(j) for j in jobs], **(args or {})}
+        return args
+
     def add_span(self, name: str, t0: float, t1: float, cat: str = "host",
-                 lane: str = None, args: dict = None) -> None:
+                 lane: str = None, args: dict = None,
+                 jobs: list = None) -> None:
         """Record an already measured ``[t0, t1]`` interval (seconds on
         :func:`now`'s clock), on ``lane`` or the calling thread's
         track."""
         if not self.enabled:
             return
-        args = _tag_args(args)
+        args = self._args(args, jobs)
         tid = self._lane_tid(lane) if lane else self._tid()
         ev = {"name": name, "ph": "X", "cat": cat, "pid": self._pid,
               "tid": tid, "ts": _us(t0), "dur": max(0.0, (t1 - t0) * 1e6)}
@@ -116,12 +134,34 @@ class Tracer:
             self._events.append(ev)
 
     def add_instant(self, name: str, cat: str = "host",
-                    args: dict = None) -> None:
+                    args: dict = None, jobs: list = None) -> None:
         if not self.enabled:
             return
-        args = _tag_args(args)
+        args = self._args(args, jobs)
         ev = {"name": name, "ph": "i", "s": "t", "cat": cat,
               "pid": self._pid, "tid": self._tid(), "ts": _us(now())}
+        if args:
+            ev["args"] = args
+        with self._lock:
+            self._events.append(ev)
+
+    def add_flow(self, name: str, flow_id: int, phase: str,
+                 cat: str = "fuse", lane: str = None, t: float = None,
+                 args: dict = None, jobs: list = None) -> None:
+        """Chrome flow event: ``phase`` "s" (start), "t" (step) or "f"
+        (finish); one ``flow_id`` links the arrows.  The device
+        executor ties a unit's submit to the fused dispatch it rode.
+        ``bp: "e"`` binds a finish to the enclosing span, so the arrow
+        lands on the dispatch span itself."""
+        if not self.enabled:
+            return
+        args = self._args(args, jobs)
+        tid = self._lane_tid(lane) if lane else self._tid()
+        ev = {"name": name, "ph": phase, "cat": cat, "pid": self._pid,
+              "tid": tid, "id": int(flow_id),
+              "ts": _us(t if t is not None else now())}
+        if phase == "f":
+            ev["bp"] = "e"
         if args:
             ev["args"] = args
         with self._lock:

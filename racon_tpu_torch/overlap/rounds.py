@@ -9,6 +9,11 @@ changed, so any client-supplied PAF is stale by definition).
 Determinism: each round is the deterministic single-round pipeline and
 intermediate drafts are written canonically (``>name\\ndata\\n``), so
 the same inputs + knobs produce byte-identical final FASTA.
+
+The result cache (racon_tpu_torch/cache) carries across rounds: a
+window or pair whose content did not move since the round before
+digests identically and is served from it.  Each round's report gives
+its ``cache_hit`` count, the process registry's delta over the round.
 """
 
 from __future__ import annotations
@@ -18,6 +23,7 @@ import shutil
 import tempfile
 from typing import List, Optional, Tuple
 
+from racon_tpu_torch.obs import REGISTRY
 from racon_tpu_torch.obs import trace as obs_trace
 
 
@@ -62,6 +68,7 @@ def polish_rounds(sequences_path: str, overlaps_path: Optional[str],
     try:
         for i in range(rounds):
             final = i == rounds - 1
+            hits0 = int(REGISTRY.value("cache_hit", 0))
             t0 = obs_trace.now()
             polisher = create_polisher(
                 sequences_path, overlaps_path if i == 0 else None,
@@ -84,9 +91,7 @@ def polish_rounds(sequences_path: str, overlaps_path: Optional[str],
                     polisher.metrics.value("host.map_s", 0.0)), 6),
                 "overlaps": int(
                     polisher.metrics.value("map_overlaps", 0)),
-                # the JAX package counts the round's result-cache hits
-                # here; the port has no result cache yet, so none hit
-                "cache_hit": 0,
+                "cache_hit": int(REGISTRY.value("cache_hit", 0)) - hits0,
                 "n_sequences": len(polished),
                 "stage_walls": {k: round(v, 6) for k, v in
                                 polisher.stage_walls.items()},

@@ -72,12 +72,13 @@ def _calib_path():
     return os.path.join(root, "calibration.json")
 
 
-def _code_salt() -> str:
-    """Hash of the kernels', the native engines' and the host modules'
-    sources: rates measured for one generation of the code must not
-    price another's split."""
+def _code_salt(patterns=_SALTED) -> str:
+    """Hash of the sources that ``patterns`` name (by default the
+    kernels', the native engines' and the host modules'): rates
+    measured for one generation of the code must not price another's
+    split."""
     h = hashlib.sha1()
-    paths = sorted({p for pat in _SALTED
+    paths = sorted({p for pat in patterns
                     for p in glob.glob(os.path.join(_PKG, pat))})
     for path in paths:
         with open(path, "rb") as fh:

@@ -14,7 +14,7 @@ import torch
 
 from racon_tpu.core import polisher as jax_polisher
 from racon_tpu.tools import simulate
-from racon_tpu_torch import cli
+from racon_tpu_torch import cache, cli
 from racon_tpu_torch.core import overlap as overlap_mod
 from racon_tpu_torch.core.overlap import Overlap
 from racon_tpu_torch.core.polisher import PolisherType, create_polisher
@@ -66,6 +66,16 @@ def sim(tmp_path_factory, device_only_env):
                 truth=_read_fasta(os.path.join(out, "genome.fasta")))
 
 
+@pytest.fixture(autouse=True)
+def cold_result_cache():
+    """Every test starts and ends with an empty result cache, as a fresh
+    process would: a test here counts launches, rungs or rates, or
+    swaps an engine, and must not see what an earlier test filled."""
+    cache.reset()
+    yield
+    cache.reset()
+
+
 @pytest.fixture(scope="module")
 def align_only(sim):
     """--cudaaligner-batches 1 without -c; counts POA kernel calls."""
@@ -77,6 +87,7 @@ def align_only(sim):
         return orig(*a, **kw)
 
     buf = io.BytesIO()
+    cache.reset()                       # a module fixture: cold by hand
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(pf, "poa_full", counted)
         pol = cli.main(["--device", "cpu", "-t", "4",

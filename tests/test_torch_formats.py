@@ -21,12 +21,23 @@ import pytest
 from racon_tpu.core import polisher as jax_polisher
 from racon_tpu.io import fastio as jax_fastio
 from racon_tpu.tools import simulate
-from racon_tpu_torch import cli
+from racon_tpu_torch import cache, cli
 from racon_tpu_torch.core.overlap import InvalidInputError
 from racon_tpu_torch.io import fastio, parsers
 from racon_tpu_torch.ops import cpu
 from test_fastio import (MHAP_CASES, PAF_CASES, PAF_ERROR_CASES, SAM_CASES,
                          _drain, _write)
+
+
+@pytest.fixture(autouse=True)
+def cold_result_cache():
+    """Every test starts and ends with an empty result cache, as a fresh
+    process would: a test here counts launches, rungs or rates, or
+    swaps an engine, and must not see what an earlier test filled."""
+    cache.reset()
+    yield
+    cache.reset()
+
 
 SCORES = ["-m", "5", "-x", "-4", "-g", "-8"]
 BUDGETS = (-1, 1, 25, 10 ** 9)
@@ -198,7 +209,9 @@ def _jax_polish(reads, overlaps, draft, trim=True):
 
 
 def _port_polish(*argv):
+    """The port's CLI polish from an empty result cache."""
     buf = io.BytesIO()
+    cache.reset()
     cli.main(["--device", "cpu", "-t", "4", *SCORES, *argv], out=buf)
     return buf.getvalue()
 

@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+from racon_tpu import cache as jax_cache
 from racon_tpu.core import polisher as jax_polisher
 from racon_tpu.overlap import map_files as jax_map_files
 from racon_tpu.overlap import map_sequences as jax_map_sequences
@@ -26,7 +27,7 @@ from racon_tpu.overlap import polish_rounds as jax_polish_rounds
 from racon_tpu.overlap.index import MinimizerIndex as JaxIndex
 from racon_tpu.tools import simulate
 from racon_tpu.tpu import seedmatch
-from racon_tpu_torch import cli
+from racon_tpu_torch import cache, cli
 from racon_tpu_torch.core.polisher import PolisherType
 from racon_tpu_torch.cuda import seed_words as sw
 from racon_tpu_torch.io.parsers import create_sequence_parser
@@ -41,6 +42,16 @@ OVERLAP_FIELDS = ("q_name", "q_length", "q_begin", "q_end", "t_name",
                   "t_length", "t_begin", "t_end", "strand", "length",
                   "error", "is_valid")
 _ACGT = np.frombuffer(b"ACGT", dtype=np.uint8)
+
+
+@pytest.fixture(autouse=True)
+def cold_result_cache():
+    """Every test starts and ends with an empty result cache, as a fresh
+    process would: a test here counts launches, rungs or rates, or
+    swaps an engine, and must not see what an earlier test filled."""
+    cache.reset()
+    yield
+    cache.reset()
 
 
 class _Seq:
@@ -419,31 +430,39 @@ def _read_fasta(path):
 
 @pytest.fixture(scope="module")
 def jax_rounds(dataset):
-    """The JAX package's CPU polish over 1 and 2 rounds, no PAF."""
+    """The JAX package's CPU polish over 1 and 2 rounds, no PAF, each
+    from an empty result cache: (bytes, per-round cache hits)."""
     out = {}
     for rounds in (1, 2):
+        jax_cache._reset_for_tests()
         seqs, pol = jax_polish_rounds(
             dataset["reads"], None, dataset["draft"],
             jax_polisher.PolisherType.kC, 500, 10.0, 0.3, True, 5, -4, -8,
             2, rounds=rounds)
         pol.close()
-        out[rounds] = _fasta(seqs)
+        out[rounds] = (_fasta(seqs),
+                       [r["cache_hit"] for r in pol.rounds_report])
+    jax_cache._reset_for_tests()
     return out
 
 
 @pytest.mark.parametrize("rounds", [1, 2])
 def test_cpu_polisher_rounds_bytes_equal_jax(dataset, jax_rounds, rounds):
     """No read of this set has a second chain in either round, so the
-    port's ``primary_only`` departure does not show here."""
+    port's ``primary_only`` departure does not show here; from an empty
+    result cache each round hits the cache as often as the JAX
+    package's does (windows whose content did not move since round
+    1)."""
     seqs, pol = polish_rounds(dataset["reads"], None, dataset["draft"],
                               PolisherType.kC, 500, 10.0, 0.3, True, 5, -4,
                               -8, 2, rounds=rounds)
     pol.close()
-    assert _fasta(seqs) == jax_rounds[rounds]
+    want, want_hits = jax_rounds[rounds]
+    assert _fasta(seqs) == want
     report = pol.rounds_report
     assert [r["round"] for r in report] == list(range(1, rounds + 1))
-    assert all(r["map_s"] > 0 and r["overlaps"] > 0 and
-               r["cache_hit"] == 0 for r in report)
+    assert all(r["map_s"] > 0 and r["overlaps"] > 0 for r in report)
+    assert [r["cache_hit"] for r in report] == want_hits
     assert "map" in pol.stage_walls
 
 
@@ -500,11 +519,17 @@ def kernel_path(tmp_path_factory):
     argv = ["--device", "cpu", "-t", "2", "-c", "1",
             "--cudaaligner-batches", "1", "--rounds", "2", *SCORES,
             reads, draft]
+    # each run from an empty result cache, so every comparison below
+    # recomputes every window and pair
+    cache.reset()
     first, pol = _cli(argv)
+    cache.reset()
     second, _ = _cli(argv)
+    cache.reset()
     with pytest.MonkeyPatch.context() as mp:
         mp.setenv("RACON_TPU_TORCH_MAP_DEVICE_SEED", "0")
         numpy_seed, _ = _cli(argv)
+    cache.reset()
     seqs, ref = jax_polish_rounds(
         reads, None, draft, jax_polisher.PolisherType.kC, 500, 10.0, 0.3,
         True, 5, -4, -8, 2, rounds=2)
@@ -549,6 +574,7 @@ def test_run_alias_and_rounds_forms_parse_alike(dataset):
     two positionals map: the CPU path's bytes are the same all ways."""
     args = [*SCORES, "-t", "2", dataset["reads"], dataset["draft"]]
     a, pol_a = _cli(["run", "--device", "cpu", "--rounds", "2", *args])
+    cache.reset()                       # b recomputes, not served warm
     b, pol_b = _cli(["--device", "cpu", "--rounds=2", *args])
     assert a == b and a.startswith(b">")
     assert len(pol_a.rounds_report) == len(pol_b.rounds_report) == 2

@@ -30,7 +30,7 @@ import torch
 from racon_tpu.obs import calhealth as jax_calhealth
 from racon_tpu.obs import devutil as jax_devutil
 from racon_tpu.obs import metrics as jax_metrics
-from racon_tpu_torch import cli
+from racon_tpu_torch import cache, cli
 from racon_tpu_torch.core.polisher import PolisherType, create_polisher
 from racon_tpu_torch.cuda import devclock
 from racon_tpu_torch.cuda.polisher import CudaPolisher
@@ -40,6 +40,17 @@ from racon_tpu_torch.obs import trace as obs_trace
 from racon_tpu_torch.obs.context import job_context
 from racon_tpu_torch.tools import simulate
 from racon_tpu_torch.utils.logger import Logger
+
+
+@pytest.fixture(autouse=True)
+def cold_result_cache():
+    """Every test starts and ends with an empty result cache, as a fresh
+    process would: a test here counts launches, rungs or rates, or
+    swaps an engine, and must not see what an earlier test filled."""
+    cache.reset()
+    yield
+    cache.reset()
+
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SCORES = ["-m", "5", "-x", "-4", "-g", "-8"]
@@ -399,8 +410,9 @@ ARGV = ["--device", "cpu", "-t", "4", *SCORES, "-c", "1",
 
 @pytest.fixture(scope="module")
 def plain(dataset):
-    """The untraced CLI polish's bytes."""
+    """The untraced CLI polish's bytes, from an empty result cache."""
     buf = io.BytesIO()
+    cache.reset()
     cli.main(ARGV + list(dataset), out=buf)
     return buf.getvalue()
 
@@ -419,6 +431,8 @@ def test_traced_polish_byte_identical_and_reported(dataset, plain,
     intervals summing to its device seconds.  The process's DEVICE_UTIL
     gets none of them, and a second polisher leaves the first's alone."""
     trace_path = str(tmp_path / "polish_trace.json")
+    # the untraced polish filled the cache: this one starts cold
+    cache.reset()
     devutil.DEVICE_UTIL.reset()
     obs_trace.TRACER.clear()
     obs_trace.enable_trace(trace_path)

@@ -28,6 +28,7 @@ from racon_tpu.core import polisher as jax_polisher
 from racon_tpu.core.window import WindowLedger as JaxLedger
 from racon_tpu.tpu import polisher as jax_tpu_polisher
 from racon_tpu.utils import calibrate as jax_calibrate
+from racon_tpu_torch import cache
 from racon_tpu_torch.core import overlap as port_overlap
 from racon_tpu_torch.core.polisher import PolisherType, create_polisher
 from racon_tpu_torch.core.window import WindowLedger
@@ -37,6 +38,17 @@ from racon_tpu_torch.cuda.polisher import CudaPolisher
 from racon_tpu_torch.ops import cpu
 from racon_tpu_torch.tools import simulate
 from racon_tpu_torch.utils import calibrate
+
+
+@pytest.fixture(autouse=True)
+def cold_result_cache():
+    """Every test starts and ends with an empty result cache, as a fresh
+    process would: a test here counts launches, rungs or rates, or
+    swaps an engine, and must not see what an earlier test filled."""
+    cache.reset()
+    yield
+    cache.reset()
+
 
 #: rates every polish here runs at unless a test says otherwise: a
 #: device share of a few windows and about half the overlaps on this
@@ -108,8 +120,11 @@ def _polish(dataset, env=(), between=None, threads=4, aligner=1,
     """One polish through CudaPolisher on the CPU under ``env``, with
     the class attributes ``attrs`` (PIPE_MIN, PIPE_DEPTH, MEGABATCH_CAP)
     set; ``between(pol)`` runs after initialize(); ``mark_cpu``
-    lower-cases the native POA engine's consensus.  Returns (bytes,
-    polisher, the windows as built)."""
+    lower-cases the native POA engine's consensus.  Each polish starts
+    from an empty result cache, as a fresh process would (a cached
+    lower-cased consensus must not reach a run that marks nothing).
+    Returns (bytes, polisher, the windows as built)."""
+    cache.reset()
     with pytest.MonkeyPatch.context() as mp:
         for k, v in dict(env).items():
             mp.setenv(k, v)
@@ -650,9 +665,9 @@ def test_consumer_error_reaches_the_caller(dataset, where):
     orig_done = CudaPolisher._pipeline_align_done
     holder = {}
 
-    def faulty(self, windows, trim):
+    def faulty(self, windows, trim, **kw):
         if threading.current_thread().name != "racon-torch-poa-stream":
-            return orig_async(self, windows, trim)
+            return orig_async(self, windows, trim, **kw)
         if where == "dispatch":
             launched.set()
             raise RuntimeError("injected dispatch fault")

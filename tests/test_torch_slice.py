@@ -13,7 +13,7 @@ import torch
 
 from racon_tpu.core import polisher as jax_polisher
 from racon_tpu.tools import simulate
-from racon_tpu_torch import cli, resolve_device
+from racon_tpu_torch import cache, cli, resolve_device
 from racon_tpu_torch.ops import cpu
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -55,6 +55,7 @@ def polished(tmp_path_factory, device_only_env):
     paths = simulate.simulate(str(out), genome_len=10_000, coverage=10,
                               read_len=2_000, seed=5, ont=True)
     buf = io.BytesIO()
+    cache.reset()                       # a module fixture: cold by hand
     pol = cli.main(["--device", "cpu", "-t", "4", "-c", "1", *SCORES,
                     *paths], out=buf)
     ref = jax_polisher.create_polisher(
@@ -66,6 +67,16 @@ def polished(tmp_path_factory, device_only_env):
     truth = _read_fasta(os.path.join(out, "genome.fasta"))
     return dict(port=_records(buf.getvalue()), jax=jax_out, pol=pol,
                 truth=truth, draft=_read_fasta(paths[2]))
+
+
+@pytest.fixture(autouse=True)
+def cold_result_cache():
+    """Every test starts and ends with an empty result cache, as a fresh
+    process would: a test here counts launches, rungs or rates, or
+    swaps an engine, and must not see what an earlier test filled."""
+    cache.reset()
+    yield
+    cache.reset()
 
 
 def test_cli_polishes_on_cpu_plain_path(polished):
