@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--genome-len N] [--threads T] [--work DIR]
                           [--only band|wfa|default|traced|map|cache|
-                                  fusion]
+                                  fusion|serve]
                           [--keep DIR]
 
 Needs one CUDA card.  Phases, one JSON line each:
@@ -122,6 +122,25 @@ Needs one CUDA card.  Phases, one JSON line each:
                 tenant a's first chunk, the fused dispatch fails, a's
                 unit retries alone on the card and a's polish keeps its
                 bytes, and only b's collect raises;
+   serve        the port's serve daemon (``serve --jobs 2``) in a
+                subprocess on the card, one ``serve`` line per part:
+                ``cold_warm``, the whole set submitted twice, staged,
+                cache off, at the polish's megabatch size
+                (RACON_TPU_TORCH_POA_MEGABATCH): both jobs' bytes equal
+                phase 6's, job 2 reports 0 kernel builds and 0 loads,
+                each job's wall and launches beside the one-shot's;
+                ``tenants``, the fusion phase's two 1 Mb cuts alone, then
+                submitted together as two tenants: each one's bytes
+                equal its solo job's, with the fused dispatches, the
+                occupancy and the per-tenant waits; ``default``, a
+                default-path job on the first cut at the built-in rates,
+                pinned, whose bytes equal a one-shot run of the same
+                pins; ``sigkill``, a journaled daemon armed with
+                RACON_TPU_TORCH_FAULT=mid-megabatch:2 dies by SIGKILL on
+                the whole set, a restart on the same socket and journal
+                answers the keyed resubmit with phase 6's bytes,
+                recovered_jobs 1 and poa_resumed_windows > 0.  A failed
+                job fails the phase;
    pipeline_bytes  the first 1 Mb of the set at the second run's
                 stored rates, pinned: pipeline off, then on, then on and
                 traced; the FASTA must be byte-identical;
@@ -131,7 +150,8 @@ Needs one CUDA card.  Phases, one JSON line each:
                 at k 13 (the reads in batches of up to 2^26 bases, then
                 the draft) and on a 1 Mb cut at k 5 and 15, 0
                 mismatches, with the kernel's ms, bound, the conv1d
-                yardstick, the copies and numpy; then the CLI at the
+                yardstick, the copies and numpy; then (``--only map``
+                alone) the CLI at the
                 defaults with no PAF, --rounds 2 with --metrics-json on
                 the whole set: per round wall,
                 map_s, overlaps, recall >= 0.95 and precision >= 0.90
@@ -149,7 +169,8 @@ Needs one CUDA card.  Phases, one JSON line each:
 7. native_compare  200 region windows on the POA kernel and on the
                 native CPU engine: summed edit distance between the two;
 8. kernels      every ported kernel with its launches in phase 6 (the
-                seed-word kernel's in map_rounds' --rounds 2 run).
+                seed-word kernel's in map_rounds' first-Mb --rounds 1
+                run).
 
 Then the card's line as nvidia-smi prints it and the result line.  Any
 failure raises and the script exits non-zero without a result line.
@@ -160,7 +181,8 @@ minutes: a trial of one align kernel); ``--only default`` runs phases
 phases 1-3, the staged polish, traced and long_cap, ``--only map``
 phases 1-3 and map_rounds, ``--only cache`` phases 1-3, cache and
 ``cache_default`` (the default path with the cache off, on, on, off,
-twice; the same bytes), ``--only fusion`` phases 1-3 and fusion.  ``--keep DIR`` copies the
+twice; the same bytes), ``--only fusion`` phases 1-3 and fusion,
+``--only serve`` phases 1-3, the staged polish and serve.  ``--keep DIR`` copies the
 traced runs' traces and reports to DIR (open a trace in Perfetto).  The
 calibration store is off (``RACON_TPU_TORCH_CACHE_DIR=""``) outside
 polish_default.  The result cache is on (the default), and every
@@ -182,6 +204,7 @@ import statistics
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -1711,6 +1734,311 @@ def fusion_phase(work, data, threads) -> None:
         raise RuntimeError(f"fusion: poisoned unit {poison}")
 
 
+#: the serve daemon's start-up limit, and a served job's answer limit
+SERVE_START_S = 300
+SERVE_JOB_S = 900
+
+
+def daemon_socket(work, name) -> str:
+    """``<work>/<name>.sock``, or one in a fresh temporary directory
+    where that path is too long for a unix socket (~108 bytes)."""
+    sock = os.path.join(work, name + ".sock")
+    if len(sock) > 100:
+        sock = os.path.join(tempfile.mkdtemp(prefix="rts"), name + ".sock")
+    return sock
+
+
+def start_daemon(work, name, env, jobs: int = 2, sock: str = None):
+    """The port's daemon in a subprocess on the card (``serve --jobs``),
+    its output to ``<work>/<name>.log``; returns (process, socket path,
+    log path) once the socket answers."""
+    from racon_tpu_torch.serve import client
+
+    sock = sock or daemon_socket(work, name)
+    log = os.path.join(work, name + ".log")
+    with open(log, "ab") as fh:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "racon_tpu_torch.cli", "serve",
+             "--socket", sock, "--jobs", str(jobs)], cwd=ROOT, env=env,
+            stdout=fh, stderr=fh)
+    deadline = time.perf_counter() + SERVE_START_S
+    while time.perf_counter() < deadline:
+        if proc.poll() is not None:
+            raise RuntimeError(f"serve: daemon {name} exited "
+                               f"{proc.returncode}: {tail(log)}")
+        try:
+            if client.health(sock, timeout=5)["ok"]:
+                return proc, sock, log
+        except client.ServeError:
+            pass
+        time.sleep(0.2)
+    proc.kill()
+    raise RuntimeError(f"serve: daemon {name} never answered: {tail(log)}")
+
+
+def stop_daemon(proc, sock) -> None:
+    """Drain and stop a daemon (killed if it does not exit in 2 min)."""
+    from racon_tpu_torch.serve import client
+
+    if proc.poll() is None:
+        try:
+            client.admin(sock, "shutdown", timeout=30)
+        except client.ServeError:
+            proc.terminate()
+        try:
+            proc.wait(timeout=120)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+
+
+def tail(path: str, n: int = 2000) -> str:
+    try:
+        with open(path, "rb") as fh:
+            return fh.read()[-n:].decode(errors="replace")
+    except OSError:
+        return ""
+
+
+def serve_spec(paths, threads: int, **kw) -> dict:
+    """A job spec of the main path's options (-m 5 -x -4 -g -8 -c 1
+    --cudaaligner-batches 1)."""
+    reads, paf, draft = paths
+    return {"sequences": reads, "overlaps": paf, "targets": draft,
+            "threads": threads, "match": 5, "mismatch": -4, "gap": -8,
+            "cuda_poa_batches": 1, "cuda_aligner_batches": 1, **kw}
+
+
+def served(sock, spec, tag, **kw) -> tuple:
+    """Submit one job and wait for it; (FASTA bytes, response, client
+    wall s).  A failed job fails the phase."""
+    import base64
+
+    from racon_tpu_torch.serve import client
+
+    t0 = time.perf_counter()
+    resp = client.submit(sock, spec, timeout=SERVE_JOB_S, **kw)
+    wall = time.perf_counter() - t0
+    if not resp.get("ok"):
+        raise RuntimeError(f"serve {tag}: {resp.get('error')}")
+    return base64.b64decode(resp["fasta_b64"]), resp, wall
+
+
+def job_line(resp, client_wall) -> dict:
+    """What a served job's line reports: walls, per-job build and load
+    deltas, launches, resumed windows and stage walls."""
+    g = resp["report"]["run"]["gauges"]
+    d = resp["report"]["details"]
+    return {"job_id": resp["job_id"], "wall_s": resp["wall_s"],
+            "client_wall_s": round(client_wall, 3),
+            "builds": g.get("cuda_kernel_builds"),
+            "loads": g.get("cuda_kernel_loads"),
+            "native_builds": g.get("native_builds"),
+            "launches": d["launches"],
+            "poa_resumed_windows": d.get("poa_resumed_windows", 0),
+            "stage_walls_s": {k: round(v, 3)
+                              for k, v in d["stage_walls"].items()},
+            "predicted_wall_s": (resp.get("estimate") or {}).get(
+                "predicted_wall_s")}
+
+
+#: the executor's counters the concurrent-tenant run reads (deltas)
+FUSION_COUNTERS = ("fusion_dispatches", "fusion_units_fused",
+                   "fused_megabatches", "fused_cross_tenant")
+
+
+def serve_phase(cli, work, data, paths, polish_bytes, polish_wall,
+                polish_launches, batch, threads) -> None:
+    """The serve daemon on the card (module docstring): cold and warm
+    jobs, a default-path job, two concurrent tenants and one SIGKILL
+    resume."""
+    import signal
+    import threading
+
+    import torch
+
+    from racon_tpu_torch.cuda.polisher import CudaPolisher
+    from racon_tpu_torch.serve import client
+
+    # the daemons size their megabatches from the card's free memory
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    base = {k: v for k, v in os.environ.items()
+            if not k.startswith("RACON_TPU_TORCH_") or k in (
+                "RACON_TPU_TORCH_CACHE_DIR",)}
+    # staged, all on the card, cache off, the main path's megabatches
+    staged = {**base, **STAGED_ENV, "RACON_TPU_TORCH_CACHE": "0",
+              "RACON_TPU_TORCH_POA_MEGABATCH": str(batch)}
+    live = []
+    try:
+        # ---- a: cold and warm jobs of the whole set; c: two tenants
+        proc, sock, log = start_daemon(work, "serve_a", staged)
+        live.append((proc, sock))
+        jobs = {}
+        for tag in ("cold", "warm"):
+            out, resp, wall = served(sock, serve_spec(paths, threads), tag)
+            jobs[tag] = {**job_line(resp, wall),
+                         "identical": out == polish_bytes}
+        emit("serve", part="cold_warm", jobs=jobs,
+             one_shot_wall_s=round(polish_wall, 3),
+             one_shot_launches=polish_launches, megabatch=batch)
+        if not all(j["identical"] for j in jobs.values()):
+            raise RuntimeError("serve: a served job's bytes differ from "
+                               "the polish phase's")
+        if jobs["warm"]["builds"] != 0 or jobs["warm"]["loads"] != 0:
+            raise RuntimeError(f"serve: warm job {jobs['warm']}")
+        for tag, j in jobs.items():
+            for name in ("poa_full", "align_wfa", "align_band"):
+                if j["launches"][name] <= 0:
+                    raise RuntimeError(f"serve {tag}: no {name} launch")
+
+        cuts = {name: cut_region(data, os.path.join(work, f"fuse_{name}"),
+                                 FUSE_CUT_BP, start=k * FUSE_CUT_BP)
+                for k, name in enumerate("ab")}
+        solo = {}
+        for name, cut in cuts.items():
+            out, resp, wall = served(sock, serve_spec(cut, threads,
+                                                      tenant=name), name)
+            solo[name] = (out, job_line(resp, wall))
+        before = client.metrics(sock)["snapshot"]
+        both, errors = {}, []
+
+        def run(name):
+            try:
+                out, resp, wall = served(
+                    sock, serve_spec(cuts[name], threads, tenant=name),
+                    "tenant " + name)
+                both[name] = (out, job_line(resp, wall))
+            except BaseException as exc:      # raised below
+                errors.append(exc)
+
+        t0 = time.perf_counter()
+        workers = [threading.Thread(target=run, args=(n,)) for n in cuts]
+        for w in workers:
+            w.start()
+        for w in workers:
+            w.join(SERVE_JOB_S)
+        together = time.perf_counter() - t0
+        if errors:
+            raise errors[0]
+        after = client.metrics(sock)["snapshot"]
+        hists = after["histograms"]
+        waits = {n: {k: hists.get(f"{k}.{n}", {}).get("percentiles")
+                     for k in ("serve_queue_wait_s", "serve_tenant_wait_s")}
+                 for n in cuts}
+        counters = {k: after["counters"].get(k, 0)
+                    - before["counters"].get(k, 0) for k in FUSION_COUNTERS}
+        same = {n: both[n][0] == solo[n][0] for n in cuts}
+        emit("serve", part="tenants", cut_bp=FUSE_CUT_BP, identical=same,
+             solo={n: solo[n][1] for n in cuts},
+             concurrent={n: both[n][1] for n in cuts},
+             concurrent_wall_s=round(together, 3), counters=counters,
+             fusion_occupancy=(hists.get("fusion_occupancy") or {}).get(
+                 "percentiles"), waits=waits)
+        if not all(same.values()):
+            raise RuntimeError(f"serve: concurrent tenants {same}")
+        stop_daemon(proc, sock)
+        live.pop()
+
+        # ---- b: the default path at pinned rates against its one-shot
+        pins = {"RACON_TPU_TORCH_RATE_POA_DEV":
+                str(CudaPolisher.POA_DEV_US_PER_UNIT),
+                "RACON_TPU_TORCH_RATE_POA_CPU":
+                str(CudaPolisher.POA_CPU_US_PER_UNIT),
+                "RACON_TPU_TORCH_RATE_ALIGN_DEV":
+                str(CudaPolisher.DEV_NS_PER_ROW),
+                "RACON_TPU_TORCH_RATE_ALIGN_CPU":
+                str(CudaPolisher.CPU_NS_PER_CELL),
+                "RACON_TPU_TORCH_RATE_ALIGN_WFA_DEV":
+                str(CudaPolisher.WFA_DEV_NS_PER_STEP)}
+        argv = ["-t", str(threads), "-m", "5", "-x", "-4", "-g", "-8", "-c",
+                "1", "--cudaaligner-batches", "1"]
+        one_path = os.path.join(work, "serve_default_one_shot.fasta")
+        with env_set(**{**dict.fromkeys(DEFAULT_PATH_KNOBS), **pins}):
+            _, one_wall, one_launches = counted_polish(
+                cli, argv + list(cuts["a"]), one_path)
+        proc, sock, log = start_daemon(work, "serve_b", {**base, **pins})
+        live.append((proc, sock))
+        out, resp, wall = served(sock, serve_spec(cuts["a"], threads),
+                                 "default")
+        same = out == read_bytes(one_path)
+        emit("serve", part="default", cut_bp=FUSE_CUT_BP, pins=pins,
+             identical=same, job=job_line(resp, wall),
+             one_shot_wall_s=round(one_wall, 3),
+             one_shot_launches=one_launches,
+             poa_split=resp["report"]["details"]["poa_split_detail"])
+        if not same:
+            raise RuntimeError("serve: the default-path job's bytes differ "
+                               "from its one-shot twin's")
+        stop_daemon(proc, sock)
+        live.pop()
+
+        # ---- d: SIGKILL mid-megabatch, restart, keyed resubmit
+        from racon_tpu_torch.serve import journal as serve_journal
+
+        kill_sock = daemon_socket(work, "serve_kill")
+        for old in (kill_sock, serve_journal.journal_path(kill_sock)):
+            if os.path.exists(old):
+                os.remove(old)
+        proc, sock, log = start_daemon(
+            work, "serve_kill", {**staged, "RACON_TPU_TORCH_FAULT":
+                                 "mid-megabatch:2"}, sock=kill_sock)
+        live.append((proc, sock))
+        key, held = "chip-smoke-kill", {}
+
+        def doomed():
+            try:
+                held["resp"] = client.submit(sock, serve_spec(paths, threads),
+                                             job_key=key,
+                                             timeout=SERVE_JOB_S)
+            except client.ServeError as exc:
+                held["err"] = str(exc)
+
+        t0 = time.perf_counter()
+        killer = threading.Thread(target=doomed)
+        killer.start()
+        rc = proc.wait(timeout=SERVE_JOB_S)
+        killed_after = time.perf_counter() - t0
+        killer.join(60)
+        live.pop()
+        if rc != -signal.SIGKILL or "resp" in held:
+            raise RuntimeError(f"serve: the armed daemon exited {rc}, "
+                               f"answered {held}: {tail(log)}")
+        proc, sock, log = start_daemon(work, "serve_kill", staged,
+                                       sock=kill_sock)
+        live.append((proc, sock))
+        t0 = time.perf_counter()
+        resp = client.submit_with_retry(sock, serve_spec(paths, threads),
+                                        retries=4, job_key=key,
+                                        timeout=SERVE_JOB_S)
+        wall = time.perf_counter() - t0
+        if not resp.get("ok"):
+            raise RuntimeError(f"serve resume: {resp.get('error')}")
+        import base64
+
+        same = base64.b64decode(resp["fasta_b64"]) == polish_bytes
+        health = client.health(sock)
+        job = job_line(resp, wall)
+        emit("serve", part="sigkill", site="mid-megabatch:2",
+             killed_after_s=round(killed_after, 3), identical=same,
+             recovered_jobs=health["recovered_jobs"],
+             journal=health["journal"], job=job)
+        if not same or health["recovered_jobs"] != 1 \
+                or job["poa_resumed_windows"] <= 0:
+            raise RuntimeError(f"serve: SIGKILL resume identical {same}, "
+                               f"recovered {health['recovered_jobs']}, "
+                               f"resumed {job['poa_resumed_windows']}")
+        stop_daemon(proc, sock)
+        live.pop()
+    finally:
+        for proc, sock in live:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    emit("serve", part="done",
+         phase_s=round(time.perf_counter() - t_phase, 3))
+
+
 def default_path(cli, cpu, work, reads, paf, draft, truth, d_draft,
                  threads, keep=None) -> None:
     """polish_default (twice, fresh calibration store; the second run
@@ -2081,12 +2409,14 @@ MAP_CUT_BP = 1_000_000
 
 def map_rounds(cli, cpu, work, data, reads, draft, truth, threads, dev,
                keep=None, quality: bool = False) -> dict:
-    """map_rounds: seed-word parity on the whole set (and, with
-    ``quality``, the mapper's every chain on it); the CLI with no PAF at
-    the port's defaults, --rounds 2 with --metrics-json on the whole
-    set; then on the first MAP_CUT_BP bases --rounds 1 with the words
-    built on the card and --rounds 2 with the words built by numpy,
-    whose round 1 must give the same overlaps and bytes."""
+    """map_rounds: seed-word parity on the whole set; with ``quality``
+    (``--only map``) the mapper's every chain on it and the CLI with no
+    PAF at the port's defaults, --rounds 2 with --metrics-json, on the
+    whole set; then on the first MAP_CUT_BP bases --rounds 1 with the
+    words built on the card and --rounds 2 with the words built by
+    numpy, whose round 1 must give the same overlaps and bytes.  The
+    launches returned are the whole set's run's, or without it the
+    --rounds 1 run's."""
     seed = seed_check(reads, draft, dev)
     if quality:
         map_quality(reads, draft, data)
@@ -2171,12 +2501,16 @@ def map_rounds(cli, cpu, work, data, reads, draft, truth, threads, dev,
                                f"lanes, {launches['seed_words']} launches")
         return {"launches": launches, "calls": calls, "drafts": drafts}
 
-    mpath = os.path.join(work, "mapped.metrics.json")
-    main = run("main", region_of(0), 2,
-               flags=["--metrics-json", mpath])
-    keep_files(keep, mpath)
+    if quality:
+        # the whole set's --rounds 2 run (``--only map``)
+        mpath = os.path.join(work, "mapped.metrics.json")
+        main = run("main", region_of(0), 2,
+                   flags=["--metrics-json", mpath])
+        keep_files(keep, mpath)
     cut = region_of(MAP_CUT_BP)
     card = run("cut_rounds1", cut, 1)
+    if not quality:
+        main = card
     numpy_seed = run("cut_rounds2_numpy", cut, 2, seed_flag="0")
     same = {"overlaps": card["calls"][0]["overlaps"]
             == numpy_seed["calls"][0]["overlaps"],
@@ -2194,16 +2528,17 @@ def main(argv=None) -> int:
     ap.add_argument("--genome-len", type=int, default=4_641_652)
     ap.add_argument("--threads", type=int, default=os.cpu_count() or 8)
     ap.add_argument("--only", choices=["band", "wfa", "default", "traced",
-                                       "map", "cache", "fusion"],
+                                       "map", "cache", "fusion", "serve"],
                     default=None,
                     help="band / wfa: env, build, dataset, align_check and "
                     "band_card / wfa_card only; default: env, build, "
                     "dataset, polish_default and pipeline_bytes only; "
                     "traced: env, build, dataset, the staged polish, "
                     "traced and long_cap only; map: env, build, dataset "
-                    "and map_rounds only; cache / fusion: env, build, "
-                    "dataset and that phase only; then exit 0 without the "
-                    "result line")
+                    "and map_rounds with the whole set's --rounds 2 run; "
+                    "cache / fusion: env, build, dataset and that phase "
+                    "only; serve: env, build, dataset, the staged polish "
+                    "and serve; then exit 0 without the result line")
     ap.add_argument("--keep", default=None,
                     help="directory to copy the traced runs' traces and "
                     "reports to (default: none kept)")
@@ -2301,6 +2636,15 @@ def main(argv=None) -> int:
             cache_default(cli, work, argv_polish)
         elif args.only == "fusion":
             fusion_phase(work, data, args.threads)
+        elif args.only == "serve":
+            with env_set(**STAGED_ENV):
+                pol, wall, launches = counted_polish(cli, argv_polish,
+                                                     out_path)
+            emit("polish", wall_s=round(wall, 3), launches=launches,
+                 batch=pol.poa_batch_size)
+            serve_phase(cli, work, data, (reads, paf, draft),
+                        read_bytes(out_path), wall, launches,
+                        pol.poa_batch_size, args.threads)
         elif args.only == "traced":
             with env_set(**STAGED_ENV):
                 _, wall, launches = counted_polish(cli, argv_polish,
@@ -2402,6 +2746,10 @@ def main(argv=None) -> int:
 
     # ---- fusion (the device executor across two tenants) ---------------
     fusion_phase(work, data, args.threads)
+
+    # ---- serve (the daemon: served jobs on the card) --------------------
+    serve_phase(cli, work, data, (reads, paf, draft), read_bytes(out_path),
+                wall, launches, polisher.poa_batch_size, args.threads)
 
     # ---- polish_default, pipeline_bytes (the default path, counted) ------
     default_path(cli, cpu, work, reads, paf, draft, truth, d_draft,

@@ -56,6 +56,14 @@ EPOCH_EXCLUDE = frozenset({
     # the adaptive fusion window moves when a bucket dispatches, never
     # what the fused batch computes
     "RACON_TPU_TORCH_FUSE_ADAPT",
+    # the serve tier's telemetry sampler, write-ahead journal and crash
+    # harness: replay and scrape only (tests/test_torch_durable.py
+    # holds journal on and off to the same bytes)
+    "RACON_TPU_TORCH_SERVE_SAMPLE_S",
+    "RACON_TPU_TORCH_JOURNAL",
+    "RACON_TPU_TORCH_JOURNAL_DIR",
+    "RACON_TPU_TORCH_JOURNAL_FSYNC",
+    "RACON_TPU_TORCH_FAULT",
 })
 
 #: every source on a cached unit's result path (package-relative

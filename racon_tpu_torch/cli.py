@@ -16,8 +16,15 @@ Chrome trace of the run and ``--metrics-json`` its run report
 (``racon_tpu_torch/obs``), both after the FASTA is flushed, as the JAX
 package's CLI does (racon_tpu/cli.py:393-444).
 
+``serve``, ``submit`` and ``status`` are the serve daemon's subcommands
+(``racon_tpu_torch/serve``), dispatched before option parsing, as the
+JAX package's CLI does (racon_tpu/cli.py:286-301).
+
     python -m racon_tpu_torch.cli [options] <sequences> <overlaps> <targets>
     python -m racon_tpu_torch.cli [run] [options] [--rounds N] <sequences> <targets>
+    python -m racon_tpu_torch.cli serve --socket PATH [--jobs N] [--device D]
+    python -m racon_tpu_torch.cli submit --socket PATH [options] <inputs>
+    python -m racon_tpu_torch.cli status --socket PATH [--json]
 """
 
 from __future__ import annotations
@@ -36,6 +43,12 @@ from racon_tpu_torch.overlap.rounds import polish_rounds
 
 USAGE = """usage: racon_tpu_torch [options ...] <sequences> <overlaps> <target sequences>
        racon_tpu_torch [run] [options ...] [--rounds N] <sequences> <target sequences>
+       racon_tpu_torch serve --socket PATH [--jobs N] [--queue N]
+                       [--idle-timeout S] [--device cuda|cpu]
+       racon_tpu_torch submit --socket PATH [--priority P] [--tenant T]
+                       [--class interactive|batch] [--job-key K]
+                       [--retry N] [options ...] <inputs as above>
+       racon_tpu_torch status --socket PATH [--json]
 
     <sequences>  FASTA/FASTQ (gzip allowed) reads used for correction
     <overlaps>   MHAP/PAF/SAM (gzip allowed) overlaps of reads and
@@ -206,6 +219,15 @@ def main(argv=None, out=None):
     trace; with ``RACON_TPU_TORCH_FLIGHT_DUMP`` set, the flight ring,
     which an unhandled exception also dumps there."""
     argv = sys.argv[1:] if argv is None else argv
+    if argv and argv[0] in ("serve", "submit", "status"):
+        # the serve tier's subcommands parse their own flags and exit
+        if argv[0] == "serve":
+            from racon_tpu_torch.serve.server import main as entry
+        elif argv[0] == "submit":
+            from racon_tpu_torch.serve.client import main_submit as entry
+        else:
+            from racon_tpu_torch.serve.client import main_status as entry
+        raise SystemExit(entry(argv[1:]))
     if argv and argv[0] == "run":
         # the one-shot form by name: `run reads draft` maps and polishes
         argv = argv[1:]

@@ -43,6 +43,13 @@ from racon_tpu_torch.utils.logger import Logger
 CHUNK_SIZE = 1024 * 1024 * 1024  # reference kChunkSize (polisher.cpp:26)
 
 
+class JobCanceledError(RuntimeError):
+    """The serve tier canceled this job (``cancel`` by idempotence
+    key).  Raised at the polisher's cancel poll sites, which sit between
+    committed units, so a canceled job's journaled checkpoints stay
+    consistent."""
+
+
 class PolisherType(enum.Enum):
     kC = 0  # contig polishing
     kF = 1  # fragment (read) error correction
@@ -141,6 +148,15 @@ class Polisher:
         self.logger = Logger()
         self._pool = concurrent.futures.ThreadPoolExecutor(
             max_workers=self.num_threads)
+        #: the serve tier's cancel flag (a callable; None off the serve
+        #: path), polled by :meth:`_poll_cancel`
+        self._cancel_check = None
+
+    def _poll_cancel(self) -> None:
+        """Raise :class:`JobCanceledError` when the serve tier flagged
+        this job canceled.  Called between committed units only."""
+        if self._cancel_check is not None and self._cancel_check():
+            raise JobCanceledError("job canceled by the serve tier")
 
     def _wall(self, stage: str, t0: float) -> None:
         self.stage_walls[stage] = self.stage_walls.get(stage, 0.0) \
@@ -428,6 +444,7 @@ class Polisher:
         results = []
         step = len(futures) // 20
         for i, f in enumerate(futures):
+            self._poll_cancel()
             results.append(f.result())
             if step != 0 and (i + 1) % step == 0 and (i + 1) // step < 20:
                 self.logger.bar(bar_message)

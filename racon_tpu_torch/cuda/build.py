@@ -5,6 +5,10 @@ own shared library with a plain C interface under
 ``racon_tpu_torch/build/cuda`` (ignored by git) the first time it is
 needed, and loaded with ctypes.  A library newer than its source is
 reused.  Several sources build in parallel (one ``nvcc`` each).
+
+The process registry counts ``cuda_kernel_builds`` (an ``nvcc`` run)
+and ``cuda_kernel_loads`` (a library bound in this process); the serve
+tier reports each job's delta of both, so a warm daemon's jobs show 0.
 """
 
 from __future__ import annotations
@@ -16,6 +20,7 @@ import subprocess
 import threading
 from typing import Dict, List
 
+from racon_tpu_torch.obs.metrics import REGISTRY
 from racon_tpu_torch.obs.trace import now
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -102,6 +107,7 @@ def build_all(names: List[str] = None) -> Dict[str, dict]:
             continue
         proc, t0 = started
         log, _ = proc.communicate()
+        REGISTRY.add("cuda_kernel_builds")
         if proc.returncode != 0:
             errors.append(f"{n}:\n{log}")
             continue
@@ -133,6 +139,7 @@ def load(name: str) -> ctypes.CDLL:
             getattr(lib, fn).argtypes = argtypes
             getattr(lib, fn).restype = restype
         _libs[name] = lib
+        REGISTRY.add("cuda_kernel_loads")
         return lib
 
 

@@ -69,6 +69,19 @@ stages are ``device_span``s, and the run's per-engine device busy and
 idle time (the polisher's own ``DeviceUtil``, ``device_util``, fed by
 the dispatch wrappers from CUDA events) is published into ``metrics``
 when the polish ends.
+
+Durability (the serve tier's hooks, racon_tpu/tpu/polisher.py:268-285;
+``serve/session.py`` wires them for a served job, a one-shot run leaves
+them unset and its bytes unchanged): ``_checkpoint_cb`` is called with
+``[(window, consensus or None, ok)]`` after each committed POA
+megabatch (and once for the adopted speculative windows);
+``_resume_windows`` holds the windows a dead daemon's journal committed,
+adopted like speculative results (device-assigned windows only, the
+split untouched; a ``None`` consensus takes the CPU re-polish its
+launch took); ``_calib_pin`` is the job's admission-time calibration
+snapshot, passed to every ``get_rates``.  The crash sites
+``mid-megabatch`` and ``pre-demux`` (``obs/faultinject.py``) sit at the
+same points of the staged loop and the speculative consumer.
 """
 
 from __future__ import annotations
@@ -95,6 +108,7 @@ from racon_tpu_torch.cuda import executor
 from racon_tpu_torch.cuda import poa_full as pf
 from racon_tpu_torch.obs import MetricAttr
 from racon_tpu_torch.obs import calhealth as obs_calhealth
+from racon_tpu_torch.obs import faultinject
 from racon_tpu_torch.obs import trace as obs_trace
 from racon_tpu_torch.obs.decision import DECISIONS
 from racon_tpu_torch.obs.devutil import DeviceUtil
@@ -277,6 +291,12 @@ class CudaPolisher(Polisher):
         self._align_device_free = threading.Event()
         self._poa_first_dispatch_t = None
         self._align_end_t = None
+        # the serve tier's durability hooks (module docstring)
+        self._checkpoint_cb = None
+        self._resume_windows = None
+        self._calib_pin = None
+        #: windows adopted from ``_resume_windows``
+        self.poa_resumed_windows = 0
 
     @property
     def poa_spec_megabatches(self) -> int:
@@ -313,11 +333,12 @@ class CudaPolisher(Polisher):
         return max(1, min(self.MAX_BATCH, int(budget // per_window)))
 
     def _megabatch_size(self, d1: int) -> int:
-        """``_poa_batch_size``, capped by ``MEGABATCH_CAP`` when that is
-        set."""
+        """``_poa_batch_size``, capped by ``MEGABATCH_CAP`` or, when that
+        is 0, by ``RACON_TPU_TORCH_POA_MEGABATCH``."""
         vcap, lcap = self._poa_caps()
         size = self._poa_batch_size(vcap, lcap, d1)
-        cap = self.MEGABATCH_CAP
+        cap = self.MEGABATCH_CAP or int(
+            os.environ.get("RACON_TPU_TORCH_POA_MEGABATCH") or 0)
         return min(size, cap) if cap > 0 else size
 
     def _make_poa_engine(self) -> executor.PoaEngineHandle:
@@ -514,7 +535,10 @@ class CudaPolisher(Polisher):
             idxs, coll = inflight.popleft()
             t0 = _now()
             try:
-                for i, r in zip(idxs, coll()):
+                results = coll()
+                # crash site: results on the host, not yet stored
+                faultinject.hit("pre-demux")
+                for i, r in zip(idxs, results):
                     self._spec_results[i] = r
             except Exception as exc:
                 self._record_stream_error(exc)
@@ -552,6 +576,8 @@ class CudaPolisher(Polisher):
                 self.spec_walls["dispatch"] += _now() - t0
                 while len(inflight) >= depth:
                     collect_one()
+                # crash site: a megabatch in flight, none of it stored
+                faultinject.hit("mid-megabatch")
                 continue
             if stop:
                 while inflight:
@@ -670,7 +696,7 @@ class CudaPolisher(Polisher):
         n_workers = self._tail_workers("RACON_TPU_TORCH_POA_DEVICE_ONLY")
         r_dev, r_cpu, r_src = calibrate.get_rates(
             "poa", self.device, self.POA_DEV_US_PER_UNIT,
-            self.POA_CPU_US_PER_UNIT)
+            self.POA_CPU_US_PER_UNIT, pin=self._calib_pin)
         n_priced = calibrate.host_reserved_workers(n_workers, r_src)
         if not n_workers:
             mode, dev_left = "device_only", len(eligible)
@@ -708,11 +734,16 @@ class CudaPolisher(Polisher):
         # (assignment never follows speculation); a speculative reject
         # takes the CPU re-polish, as a stage launch of it would
         work = deque(eligible)
+        assigned = set(eligible[:dev_left])
         failed: List[int] = []
+        # the windows committed before the stage's launches, journaled
+        # in one checkpoint below
+        adopted = []
         if spec:
             resolved = [i for i in eligible[:dev_left] if i in spec]
             for i in resolved:
                 cons, ok = spec[i]
+                adopted.append((i, cons, bool(ok) and cons is not None))
                 if cons is None:
                     failed.append(i)
                 else:
@@ -729,6 +760,33 @@ class CudaPolisher(Polisher):
                 f"{_PLOG} poa stream: {self.poa_spec_used}/{len(spec)} "
                 f"speculative window(s) adopted ({self.poa_spec_wasted} "
                 "recomputed on the CPU)")
+        resume = self._resume_windows
+        if resume:
+            # a dead daemon's committed windows, adopted as speculative
+            # results are: device-assigned windows only, so the split
+            # and the bytes are the uninterrupted run's
+            resumed = [i for i in work if i in resume and i in assigned]
+            for i in resumed:
+                cons, ok = resume[i]
+                if cons is None:
+                    failed.append(i)
+                else:
+                    self.windows[i].consensus = cons
+                    flags[i] = bool(ok)
+                    self.poa_device_windows += 1
+            self.poa_resumed_windows = len(resumed)
+            self.metrics.set("poa_resumed_windows", len(resumed))
+            if resumed:
+                rs = set(resumed)
+                work = deque(i for i in work if i not in rs)
+                dev_left -= len(resumed)
+            DECISIONS.record("poa_resume", used=len(resumed),
+                             replayed=len(resume))
+            self.logger.log(
+                f"{_PLOG} poa resume: {len(resumed)}/{len(resume)} "
+                "checkpointed window(s) adopted from the journal")
+        if adopted and self._checkpoint_cb is not None:
+            self._checkpoint_cb(adopted)
 
         lock = threading.Lock()
         meas = {"dev": [], "cpu_w": 0.0, "cpu_u": 0.0}
@@ -763,6 +821,9 @@ class CudaPolisher(Polisher):
         def apply(idxs, collect):
             nonlocal cpu_mark, mark
             results = collect()
+            # crash site: results on the host, not yet committed, so a
+            # restart replays this whole megabatch
+            faultinject.hit("pre-demux")
             now = time.thread_time()
             busy = _busy_s(collect.kernel_ms(), now - cpu_mark)
             u_batch = sum(unit_of[i] for i in idxs)
@@ -783,18 +844,26 @@ class CudaPolisher(Polisher):
                                       args={"n": len(idxs),
                                             "recorded": record})
             mark = t1
+            ckpt = []
             for i, (cons, ok) in zip(idxs, results):
+                ckpt.append((i, cons, bool(ok) and cons is not None))
                 if cons is None:
                     failed.append(i)
                 else:
                     self.windows[i].consensus = cons
                     flags[i] = ok
                     self.poa_device_windows += 1
+            if self._checkpoint_cb is not None:
+                # journaled after the commit: a crash between the two
+                # replays one megabatch, never uncommitted state
+                self._checkpoint_cb(ckpt)
+            self._poll_cancel()
             self.logger.bar(f"{_PLOG} generating consensus (device)")
 
         depth = self.PIPE_DEPTH
         try:
             while True:
+                self._poll_cancel()
                 with lock:
                     take = min(size, len(work), dev_left)
                     idxs = [work.popleft() for _ in range(take)]
@@ -806,6 +875,9 @@ class CudaPolisher(Polisher):
                     [self.windows[i] for i in idxs], self.trim, cap=size)))
                 while len(pipe) >= depth:
                     apply(*pipe.popleft())
+                # crash site: this megabatch in flight, none of it
+                # journaled (the older ones are, by apply)
+                faultinject.hit("mid-megabatch")
             while pipe:
                 apply(*pipe.popleft())
         except BaseException:
@@ -939,14 +1011,16 @@ class CudaPolisher(Polisher):
         n_workers = self._tail_workers("RACON_TPU_TORCH_ALIGN_DEVICE_ONLY")
         r_dev, r_cpu, r_src = calibrate.get_rates(
             "align", self.device, self.DEV_NS_PER_ROW,
-            self.CPU_NS_PER_CELL)
+            self.CPU_NS_PER_CELL, pin=self._calib_pin)
         cpu_src = r_src
         if r_src != "env":
             # the CPU rate calibrates as a stage of its own
             r_cpu, _, cpu_src = calibrate.get_rates(
-                "align_cpu", self.device, self.CPU_NS_PER_CELL)
+                "align_cpu", self.device, self.CPU_NS_PER_CELL,
+                pin=self._calib_pin)
         r_wfa, _, wfa_src = calibrate.get_rates(
-            "align_wfa", self.device, self.WFA_DEV_NS_PER_STEP)
+            "align_wfa", self.device, self.WFA_DEV_NS_PER_STEP,
+            pin=self._calib_pin)
         self._probe_divergence(pending)
         ratio = self.align_probe_ratio
         dims = [d for d, _ in pending]

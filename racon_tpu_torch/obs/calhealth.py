@@ -138,3 +138,12 @@ def reset() -> None:
     with _lock:
         _ewma.clear()
         _unit_rate.clear()
+
+
+def reset_stage(stage: str) -> None:
+    """Forget one stage's smoothed state: after a drift epoch's
+    recalibration the next observation re-seeds the EWMA, so the drift
+    flag measures the new rates (serve/scheduler.py)."""
+    with _lock:
+        _ewma.pop(stage, None)
+        _unit_rate.pop(stage, None)

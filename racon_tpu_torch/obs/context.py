@@ -20,6 +20,7 @@ bytes.
 from __future__ import annotations
 
 import os
+import re
 import threading
 from contextlib import contextmanager
 from contextvars import ContextVar
@@ -43,6 +44,15 @@ _by_tenant: dict = {}
 def make_trace_id(job_id) -> str:
     """Deterministic per-process trace id: pid and job id."""
     return f"{os.getpid():08x}-{int(job_id):06d}"
+
+
+_TRACE_ID = re.compile(r"^[A-Za-z0-9][A-Za-z0-9._:-]{0,127}$")
+
+
+def valid_trace_id(s) -> bool:
+    """A wire trace id or idempotence key: 1-128 characters of
+    ``[A-Za-z0-9._:-]``, starting alphanumeric."""
+    return isinstance(s, str) and bool(_TRACE_ID.match(s))
 
 
 def current() -> Optional[JobContext]:

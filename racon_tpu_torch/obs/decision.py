@@ -87,6 +87,13 @@ class DecisionRecorder:
             evs = evs[-last:]
         return evs
 
+    def counts(self, job=None) -> dict:
+        """Events per kind, optionally of one job."""
+        out: dict = {}
+        for ev in self.snapshot(job=job):
+            out[ev["kind"]] = out.get(ev["kind"], 0) + 1
+        return out
+
     def stats(self) -> dict:
         with self._lock:
             return {"enabled": ENABLED, "size": len(self._ring),

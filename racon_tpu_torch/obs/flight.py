@@ -31,6 +31,7 @@ from __future__ import annotations
 import json
 import os
 import sys
+import tempfile
 import threading
 import traceback
 from collections import deque
@@ -49,6 +50,15 @@ RING = 4096
 TB_LIMIT = 8000
 #: the dump path's environment variable (the CLI reads it)
 DUMP_ENV = "RACON_TPU_TORCH_FLIGHT_DUMP"
+
+
+def default_dump_path() -> str:
+    """Where a dump with no configured path lands: ``DUMP_ENV``, else
+    ``racon-tpu-torch-flight-<pid>.json`` in the temporary directory
+    (the serve daemon's dump at exit and on a crash)."""
+    return (os.environ.get(DUMP_ENV)
+            or os.path.join(tempfile.gettempdir(),
+                            f"racon-tpu-torch-flight-{os.getpid()}.json"))
 
 
 class FlightRecorder:
@@ -98,13 +108,22 @@ class FlightRecorder:
         self.record(kind, error=f"{type(exc).__name__}: {exc}",
                     traceback=tb[-TB_LIMIT:], **fields)
 
-    def snapshot(self, job=None, last: int = 0) -> list:
+    def snapshot(self, job=None, last: int = 0, job_key: str = None,
+                 trace_id: str = None) -> list:
         """Copies of the ring's events, oldest first, filtered to one
-        job; ``last`` keeps the newest N."""
+        job (its own events and the fused dispatches that carried it),
+        to an idempotence key or to a trace id; ``last`` keeps the
+        newest N."""
         with self._lock:
             evs = [dict(ev) for ev in self._ring]
         if job is not None:
-            evs = [ev for ev in evs if ev.get("job") == int(job)]
+            job = int(job)
+            evs = [ev for ev in evs
+                   if ev.get("job") == job or job in ev.get("jobs", ())]
+        if job_key is not None:
+            evs = [ev for ev in evs if ev.get("job_key") == job_key]
+        if trace_id is not None:
+            evs = [ev for ev in evs if ev.get("trace_id") == trace_id]
         if last and last > 0:
             evs = evs[-last:]
         return evs
@@ -115,9 +134,11 @@ class FlightRecorder:
                     "capacity": self._ring.maxlen,
                     "recorded": self._seq, "dropped": self._dropped}
 
-    def dump(self, path: str, reason: str = "manual") -> str:
-        """Write the ring and the decision ring to ``path`` (atomic
-        replace) as one JSON document; returns the path."""
+    def dump(self, path: str = None, reason: str = "manual") -> str:
+        """Write the ring and the decision ring to ``path`` (default
+        :func:`default_dump_path`; atomic replace) as one JSON document;
+        returns the path."""
+        path = path or default_dump_path()
         doc = {"schema": SCHEMA, "pid": os.getpid(), "reason": reason,
                "ring": self.stats(), "events": self.snapshot(),
                "decisions": {"ring": _decision.DECISIONS.stats(),
@@ -128,7 +149,7 @@ class FlightRecorder:
         os.replace(tmp, path)
         return path
 
-    def install_dump_on_crash(self, path: str) -> None:
+    def install_dump_on_crash(self, path: str = None) -> None:
         """Chain ``sys.excepthook`` and ``threading.excepthook`` so an
         unhandled exception in any thread dumps the ring to ``path``
         before the previous hook runs.  Idempotent."""

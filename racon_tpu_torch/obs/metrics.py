@@ -86,6 +86,14 @@ class Registry:
         if self.parent is not None:
             self.parent.set(name, value)
 
+    def set_local(self, name: str, value) -> None:
+        """Gauge write that does not reach the parent: a per-job view
+        of a process-wide counter (the serve tier's per-job deltas of
+        kernel builds and loads) must not overwrite the process
+        total."""
+        with self._lock:
+            self._gauges[name] = value
+
     def peak(self, name: str, value) -> None:
         with self._lock:
             if value > self._gauges.get(name, value - 1):

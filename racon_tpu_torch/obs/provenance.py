@@ -70,6 +70,32 @@ KNOWN_KNOBS = {
     "RACON_TPU_TORCH_MAP_BAND": "500",
     "RACON_TPU_TORCH_MAP_MAX_GAP": "10000",
     "RACON_TPU_TORCH_MAP_DEVICE_SEED": "1",
+    # POA windows per megabatch at most (0: sized from free memory
+    # alone); bytes are the same at any cap
+    "RACON_TPU_TORCH_POA_MEGABATCH": "0",
+    # the serve daemon (racon_tpu_torch/serve/): workers, queue bound,
+    # the admission price's wall cap and byte-rate priors, idle
+    # self-shutdown, the telemetry sampler, the deadline classes, and
+    # the calibration freeze serve_forever sets (with the drift epochs
+    # that lift it for one recalibration)
+    "RACON_TPU_TORCH_SERVE_JOBS": "2",
+    "RACON_TPU_TORCH_SERVE_QUEUE": "8",
+    "RACON_TPU_TORCH_SERVE_MAX_WALL_S": "",
+    "RACON_TPU_TORCH_SERVE_ALIGN_MBPS": "4.0",
+    "RACON_TPU_TORCH_SERVE_POA_MBPS": "2.0",
+    "RACON_TPU_TORCH_SERVE_MAP_MBPS": "8.0",
+    "RACON_TPU_TORCH_SERVE_IDLE_S": "0",
+    "RACON_TPU_TORCH_SERVE_SAMPLE_S": "0",
+    "RACON_TPU_TORCH_CLASS_TARGET_P99_S": "2.0",
+    "RACON_TPU_TORCH_CLASS_HEADROOM": "0.125",
+    "RACON_TPU_TORCH_CALIB_FREEZE": "",
+    "RACON_TPU_TORCH_CALIB_DRIFT_EPOCH": "0",
+    # the write-ahead journal ("0" off; its directory, default the
+    # socket's; fsync per record) and the crash-site harness
+    "RACON_TPU_TORCH_JOURNAL": "1",
+    "RACON_TPU_TORCH_JOURNAL_DIR": "",
+    "RACON_TPU_TORCH_JOURNAL_FSYNC": "1",
+    "RACON_TPU_TORCH_FAULT": "",
 }
 
 _probe_cache: list = []
@@ -151,6 +177,34 @@ def host_probe() -> dict:
         out["error"] = f"{type(exc).__name__}: {exc}"
     _probe_cache.append(out)
     return out
+
+
+_identity_cache: dict = {}
+
+
+def daemon_identity(socket_path: str = None) -> dict:
+    """The serve daemon's identity block, on every ``status``,
+    ``metrics``, ``health`` and ``watch`` frame: ``daemon_id`` hashes
+    host, socket, pid and start time, so a socket path reused by a
+    restarted daemon never reads as the same process.  The start time
+    is a wall-clock stamp, an identifier and not a measurement."""
+    import hashlib
+    import socket as _socket
+
+    from racon_tpu_torch import __version__
+    from racon_tpu_torch.obs.trace import wall_now
+
+    key = socket_path or ""
+    if key not in _identity_cache:
+        host = _socket.gethostname()
+        start = wall_now()
+        raw = f"{host}|{key}|{os.getpid()}|{start:.6f}"
+        _identity_cache[key] = {
+            "daemon_id": hashlib.sha1(raw.encode()).hexdigest()[:12],
+            "host": host, "pid": os.getpid(), "socket": key or None,
+            "start_epoch": round(start, 3), "version": __version__,
+            "backend": "torch"}
+    return dict(_identity_cache[key])
 
 
 def environment(probe: bool = True) -> dict:

@@ -39,6 +39,9 @@ def _build_library() -> None:
             os.path.getmtime(_LIB_PATH) >= os.path.getmtime(s)
             for s in sources):
         return
+    from racon_tpu_torch.obs.metrics import REGISTRY
+
+    REGISTRY.add("native_builds")
     proc = subprocess.run(["make", "-C", _NATIVE_DIR, "-j",
                            f"OUT={_BUILD_DIR}"],
                           capture_output=True, text=True)

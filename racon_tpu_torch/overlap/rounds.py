@@ -21,7 +21,7 @@ from __future__ import annotations
 import os
 import shutil
 import tempfile
-from typing import List, Optional, Tuple
+from typing import Callable, List, Optional, Tuple
 
 from racon_tpu_torch.obs import REGISTRY
 from racon_tpu_torch.obs import trace as obs_trace
@@ -44,6 +44,7 @@ def polish_rounds(sequences_path: str, overlaps_path: Optional[str],
                   cuda_poa_batches: int = 0,
                   cuda_banded_alignment: bool = False,
                   cuda_aligner_batches: int = 0, device=None,
+                  configure: Optional[Callable] = None,
                   workdir: Optional[str] = None) -> Tuple[List, object]:
     """Run ``rounds`` polishing rounds and return
     ``(polished_sequences, last_polisher)``.
@@ -56,6 +57,9 @@ def polish_rounds(sequences_path: str, overlaps_path: Optional[str],
     can read its metrics and stage walls; they own the ``close()``.
     Its ``rounds_report`` attribute holds the per-round stats list
     (the JAX package's keys, and each round's stage walls).
+    ``configure(polisher)``, the serve tier's hook (executor tenant,
+    cancel poll, durability), runs on every round's polisher before
+    ``initialize``.
     """
     from racon_tpu_torch.core.polisher import create_polisher
 
@@ -78,6 +82,8 @@ def polish_rounds(sequences_path: str, overlaps_path: Optional[str],
                 cuda_banded_alignment=cuda_banded_alignment,
                 cuda_aligner_batches=cuda_aligner_batches, device=device)
             try:
+                if configure is not None:
+                    configure(polisher)
                 polisher.initialize()
                 polished = polisher.polish(drop_unpolished if final
                                            else False)

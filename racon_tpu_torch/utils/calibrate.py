@@ -19,7 +19,15 @@ package's store (racon_tpu/utils/calibrate.py):
   (``RACON_TPU_TORCH_RECALIBRATE=1`` overwrites);
 * ``RACON_TPU_TORCH_RATE_<STAGE>_{DEV,CPU}`` pin both rates of a stage
   exactly, ``RACON_TPU_TORCH_RATE_<STAGE>_DEV`` alone the rate of a
-  single-rate stage; a pinned stage stores nothing.
+  single-rate stage; a pinned stage stores nothing;
+* the serve daemon freezes the store for its lifetime
+  (``RACON_TPU_TORCH_CALIB_FREEZE``: jobs read rates, never store
+  them) and journals each job's :func:`epoch_snapshot` at admission,
+  which a resumed job passes back as ``get_rates(..., pin=...)``;
+  a drift epoch (``RACON_TPU_TORCH_CALIB_DRIFT_EPOCH=1``) lifts the
+  freeze for one two-pass recalibration between jobs.
+
+:func:`predict_walls` is the serve tier's admission price.
 
 Stages: ``poa`` (us per cost unit, device and CPU), ``align`` (band
 kernel, ns per query row, and the native aligner's ns per modeled cell
@@ -101,21 +109,53 @@ def _machine_key(device) -> str:
     return f"{plat}-{n_dev}dev-{os.cpu_count()}cpu-{_code_salt()}"
 
 
+def epoch_snapshot() -> dict:
+    """The persisted store as one pinnable value: ``{"epoch": <12-hex
+    hash of the file, or "none">, "data": <the parsed file, or {}>}``.
+    The serve tier journals it at a job's admission, so a job resumed
+    after a restart prices its splits at the rates it was admitted
+    under, however the store moved in between."""
+    path = _calib_path()
+    if path is None:
+        return {"epoch": "none", "data": {}}
+    with _lock:
+        try:
+            with open(path, "rb") as f:
+                raw = f.read()
+            data = json.loads(raw)
+        except Exception:
+            return {"epoch": "none", "data": {}}
+    return {"epoch": hashlib.sha1(raw).hexdigest()[:12],
+            "data": data if isinstance(data, dict) else {}}
+
+
+def _entry_rates(ent, default_dev, default_cpu, source) -> tuple:
+    cpu = ent.get("cpu", default_cpu)
+    return (float(ent.get("dev", default_dev)),
+            None if cpu is None else float(cpu), source)
+
+
 def get_rates(stage: str, device, default_dev: float,
-              default_cpu: float = None) -> tuple:
+              default_cpu: float = None, pin: dict = None) -> tuple:
     """(dev_rate, cpu_rate, source) of a hybrid stage; a single-rate
     stage (``default_cpu`` None) gives (rate, None, source).
-    Precedence: env pin (source "env") > persisted calibration
-    ("calibrated") > defaults ("default").  The file is read on every
-    call (it is tiny), so a process that polishes several times adopts
-    its own measurements as they land; within one polish each stage
-    reads its rates once."""
+    Precedence: env pin (source "env") > the job's ``pin``, the
+    ``data`` of an :func:`epoch_snapshot` ("pinned") > persisted
+    calibration ("calibrated") > defaults ("default").  The file is
+    read on every call (it is tiny), so a process that polishes several
+    times adopts its own measurements as they land; within one polish
+    each stage reads its rates once."""
     env_dev = os.environ.get(f"RACON_TPU_TORCH_RATE_{stage.upper()}_DEV")
     env_cpu = os.environ.get(f"RACON_TPU_TORCH_RATE_{stage.upper()}_CPU")
     if env_dev and default_cpu is None:
         return (float(env_dev), None, "env")
     if env_dev and env_cpu:
         return (float(env_dev), float(env_cpu), "env")
+    if isinstance(pin, dict):
+        ent = pin.get(_machine_key(device))
+        ent = ent.get(stage) if isinstance(ent, dict) else None
+        if isinstance(ent, dict):
+            return _entry_rates(ent, default_dev, default_cpu, "pinned")
     out = (default_dev, default_cpu, "default")
     path = _calib_path()
     if not os.environ.get("RACON_TPU_TORCH_RECALIBRATE") and path:
@@ -125,10 +165,8 @@ def get_rates(stage: str, device, default_dev: float,
                     data = json.load(f)
                 ent = data.get(_machine_key(device), {}).get(stage)
                 if ent:
-                    cpu = ent.get("cpu", default_cpu)
-                    out = (float(ent.get("dev", default_dev)),
-                           None if cpu is None else float(cpu),
-                           "calibrated")
+                    out = _entry_rates(ent, default_dev, default_cpu,
+                                       "calibrated")
             except Exception:
                 pass
     return out
@@ -171,6 +209,12 @@ def store_rates(stage: str, device, dev_rate: float, cpu_rate=None,
     non-provisional one.  Never raises."""
     if not dev_rate > 0 or (cpu_rate is not None and not cpu_rate > 0):
         return
+    if os.environ.get("RACON_TPU_TORCH_CALIB_FREEZE") \
+            and not _drift["open"]:
+        # a serve daemon: a job's split is a pure function of the
+        # store as the daemon found it, so jobs never store (unless a
+        # drift epoch is open)
+        return
     try:
         path = _calib_path()
         if path is None:
@@ -186,12 +230,18 @@ def store_rates(stage: str, device, dev_rate: float, cpu_rate=None,
             ent = data.setdefault(mkey, {})
             old = ent.get(stage)
             recal = os.environ.get("RACON_TPU_TORCH_RECALIBRATE")
+            restart = False
+            if _drift["open"] and stage not in _drift["fresh"]:
+                # a drift epoch's first store of a stage overwrites the
+                # frozen entry and restarts its two-pass sequence
+                recal = restart = True
+                _drift["fresh"].add(stage)
             old_real = old and not old.get("provisional")
             if old_real and old.get("gen", 1) >= 2 and not recal:
                 return
             if provisional and old_real and not recal:
                 return
-            if provisional:
+            if provisional or restart:
                 gen = 1
             else:
                 # a real sample after provisional ones starts its own
@@ -209,3 +259,97 @@ def store_rates(stage: str, device, dev_rate: float, cpu_rate=None,
             os.replace(tmp, path)
     except Exception:
         pass
+
+
+def predict_walls(align_s: float, poa_s: float, overlap_s: float = None,
+                  concurrency: int = 1, occupancy: float = None,
+                  hit_ratio: float = None) -> dict:
+    """The serve tier's admission price of a polish whose stages take
+    ``align_s`` and ``poa_s`` alone (the JAX package's model,
+    racon_tpu/utils/calibrate.py:176): additive wall, the overlapped
+    floor max(align, poa) and, given the pipeline's ``overlap_s``, the
+    predicted wall between them.  ``concurrency`` > 1 adds
+    ``shared_wall_s``: each other job sharing the card adds up to one
+    floor, discounted by the measured mean fusion ``occupancy``.
+    ``hit_ratio``, the result cache's observed hit ratio, discounts
+    every wall (to at most 90%).  Policy only: it moves admission,
+    never bytes."""
+    out = {"additive_wall_s": round(align_s + poa_s, 3),
+           "overlapped_floor_s": round(max(align_s, poa_s), 3)}
+    if overlap_s is not None:
+        overlap_s = max(0.0, min(float(overlap_s), min(align_s, poa_s)))
+        out["predicted_wall_s"] = round(
+            max(max(align_s, poa_s), align_s + poa_s - overlap_s), 3)
+        hideable = min(align_s, poa_s)
+        out["overlap_efficiency"] = round(
+            overlap_s / hideable, 3) if hideable > 0 else 0.0
+    n = max(1, int(concurrency))
+    if n > 1:
+        occ = min(1.0, max(0.0, occupancy or 0.0))
+        base = out.get("predicted_wall_s", out["additive_wall_s"])
+        out["shared_wall_s"] = round(
+            base + (n - 1) * out["overlapped_floor_s"] / (1.0 + occ), 3)
+        out["shared_concurrency"] = n
+        out["fusion_occupancy"] = round(occ, 3)
+    if hit_ratio is not None and hit_ratio > 0:
+        hr = min(1.0, max(0.0, float(hit_ratio)))
+        discount = max(0.1, 1.0 - hr)
+        out["cache_hit_ratio"] = round(hr, 4)
+        for term in ("predicted_wall_s", "shared_wall_s",
+                     "overlapped_floor_s"):
+            if term in out:
+                out["undiscounted_" + term] = out[term]
+                out[term] = round(out[term] * discount, 3)
+    return out
+
+
+# -- drift epochs ---------------------------------------------------------
+#
+# A serve daemon freezes the store for its lifetime
+# (RACON_TPU_TORCH_CALIB_FREEZE).  When obs.calhealth says the frozen
+# rates price a stage badly, the scheduler may open a drift epoch
+# (RACON_TPU_TORCH_CALIB_DRIFT_EPOCH=1) at a job boundary: the freeze
+# lifts for one two-pass recalibration, then closes.  Jobs admitted
+# before keep their journaled epoch pins, so no running job's rates
+# move.
+
+_drift = {"open": False, "jobs": 0, "fresh": set()}
+
+#: job boundaries a drift epoch stays open for (store_rates' two passes)
+DRIFT_EPOCH_JOBS = 2
+
+
+def drift_epoch_enabled() -> bool:
+    return os.environ.get("RACON_TPU_TORCH_CALIB_DRIFT_EPOCH", "0") == "1"
+
+
+def open_drift_epoch() -> bool:
+    """Open a recalibration epoch; True when this call opened it."""
+    with _lock:
+        if _drift["open"]:
+            return False
+        _drift.update(open=True, jobs=0, fresh=set())
+        return True
+
+
+def note_drift_job() -> bool:
+    """Count one finished job against the open epoch; True when this
+    call closed it."""
+    with _lock:
+        if not _drift["open"]:
+            return False
+        _drift["jobs"] += 1
+        if _drift["jobs"] >= DRIFT_EPOCH_JOBS:
+            _drift["open"] = False
+            return True
+        return False
+
+
+def drift_epoch_state() -> dict:
+    with _lock:
+        return {"open": _drift["open"], "jobs": _drift["jobs"]}
+
+
+def reset_drift() -> None:
+    with _lock:
+        _drift.update(open=False, jobs=0, fresh=set())
