@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--genome-len N] [--threads T] [--work DIR]
                           [--only band|wfa|default|traced|map|cache|
-                                  fusion|serve]
+                                  fusion|serve|fleet]
                           [--keep DIR]
 
 Needs one CUDA card.  Phases, one JSON line each:
@@ -141,6 +141,33 @@ Needs one CUDA card.  Phases, one JSON line each:
                 answers the keyed resubmit with phase 6's bytes,
                 recovered_jobs 1 and poa_resumed_windows > 0.  A failed
                 job fails the phase;
+   fleet        the fleet: the whole set cut into four contiguous draft
+                regions of ~1.2 Mb with their reads, joined into one
+                four-contig job (tools/simulate.py:concat_sets); two
+                backend daemons on the card (``--jobs 1``, staged, cache
+                off, RACON_TPU_TORCH_POA_MEGABATCH pinned), a third armed
+                with RACON_TPU_TORCH_FAULT=mid-megabatch:1, and routers
+                (``route``, straggler replacements off) in front of two of
+                them, one ``fleet`` line per part: ``routed``, the job
+                whole through the router (distance <= draft / 10, its
+                backend and the ``route`` event that placed it, wall,
+                launches); ``scattered``, the job as two staged target
+                shards (bytes equal the routed job's, each shard's
+                backend, wall and skipped parse bytes, the gather's wall
+                against the routed one); ``failover``, the same through
+                the armed backend and a survivor (the armed one dies
+                after its first megabatch, route_failover >= 1, the
+                survivor's journal holds the dead shard under its key,
+                the bytes equal); ``ranks``, the one-shot CLI as two
+                processes at once with RACON_TPU_TORCH_NPROC=2 (rank 0
+                then rank 1 equal the routed bytes); ``fleet_metrics``,
+                ``metrics --fleet A,B --json``: the merged kernel launch
+                counters equal the two daemons' summed, every merged
+                histogram's p50/p90/p99 equal ``merge_snapshots``'s;
+                ``fleet_card``, each backend's max_memory_reserved, the
+                card's compute processes as nvidia-smi lists them, and
+                the processes with a /dev/nvidia<N> node open, sampled
+                through the phase: both backends, never a router;
    pipeline_bytes  the first 1 Mb of the set at the second run's
                 stored rates, pinned: pipeline off, then on, then on and
                 traced; the FASTA must be byte-identical;
@@ -159,7 +186,8 @@ Needs one CUDA card.  Phases, one JSON line each:
                 walls, launches and result-cache hits (round 2 reuses
                 round 1's unmoved windows and pairs), every kernel
                 launched, and the seed kernel's main-path ms from its
-                device lane; then on the
+                device lane and its bound on round 1's buffers
+                (``seed_round1_bound``); then on the
                 first 1 Mb --rounds 1 with the words built on the card
                 and --rounds 2 with them built by numpy, whose round 1
                 must map the same overlaps and write the same bytes
@@ -182,7 +210,8 @@ phases 1-3, the staged polish, traced and long_cap, ``--only map``
 phases 1-3 and map_rounds, ``--only cache`` phases 1-3, cache and
 ``cache_default`` (the default path with the cache off, on, on, off,
 twice; the same bytes), ``--only fusion`` phases 1-3 and fusion,
-``--only serve`` phases 1-3, the staged polish and serve.  ``--keep DIR`` copies the
+``--only serve`` phases 1-3, the staged polish and serve, ``--only
+fleet`` phases 1-3 and fleet.  ``--keep DIR`` copies the
 traced runs' traces and reports to DIR (open a trace in Perfetto).  The
 calibration store is off (``RACON_TPU_TORCH_CACHE_DIR=""``) outside
 polish_default.  The result cache is on (the default), and every
@@ -1222,15 +1251,11 @@ def chunk_rates(chunks) -> dict:
 def launch_counts(mapped: bool = False) -> dict:
     """Every kernel's launch count now (``seed_words`` too when the run
     maps its overlaps)."""
-    from racon_tpu_torch.cuda import align_band as ab
-    from racon_tpu_torch.cuda import align_wfa as aw
-    from racon_tpu_torch.cuda import poa_full as pf
-    from racon_tpu_torch.cuda import seed_words as sw
+    from racon_tpu_torch.cuda import build
 
-    out = {"poa_full": pf.LAUNCHES, "align_wfa": aw.LAUNCHES,
-           "align_band": ab.LAUNCHES}
-    if mapped:
-        out["seed_words"] = sw.LAUNCHES
+    out = build.launch_counts()
+    if not mapped:
+        del out["seed_words"]
     return out
 
 
@@ -1240,15 +1265,12 @@ def counted_polish(cli, argv, out_path, mapped: bool = False,
     before it, from an empty in-process result cache unless ``cold`` is
     False; returns (polisher, wall s, launches)."""
     from racon_tpu_torch import cache
-    from racon_tpu_torch.cuda import align_band as ab
-    from racon_tpu_torch.cuda import align_wfa as aw
-    from racon_tpu_torch.cuda import poa_full as pf
-    from racon_tpu_torch.cuda import seed_words as sw
+    from racon_tpu_torch.cuda import build
 
     if cold:
         cache.reset()
     before = card_state()
-    pf.LAUNCHES = aw.LAUNCHES = ab.LAUNCHES = sw.LAUNCHES = 0
+    build.zero_launch_counts()
     t0 = time.perf_counter()
     with open(out_path, "wb") as out:
         polisher = cli.main(argv, out=out)
@@ -1570,10 +1592,8 @@ def fusion_phase(work, data, threads) -> None:
     import threading
 
     from racon_tpu_torch.core.polisher import PolisherType, create_polisher
-    from racon_tpu_torch.cuda import align_band as ab
-    from racon_tpu_torch.cuda import align_wfa as aw
+    from racon_tpu_torch.cuda import build
     from racon_tpu_torch.cuda import executor
-    from racon_tpu_torch.cuda import poa_full as pf
     from racon_tpu_torch.cuda.polisher import CudaPolisher
     from racon_tpu_torch.obs import REGISTRY
     from racon_tpu_torch.obs.devutil import DEVICE_UTIL
@@ -1598,7 +1618,7 @@ def fusion_phase(work, data, threads) -> None:
         return out, time.perf_counter() - t0
 
     def zero():
-        pf.LAUNCHES = aw.LAUNCHES = ab.LAUNCHES = 0
+        build.zero_launch_counts()
 
     fused_keys = ("fusion_dispatches", "fusion_units_fused",
                   "fused_megabatches", "fused_cross_tenant")
@@ -1752,15 +1772,29 @@ def start_daemon(work, name, env, jobs: int = 2, sock: str = None):
     """The port's daemon in a subprocess on the card (``serve --jobs``),
     its output to ``<work>/<name>.log``; returns (process, socket path,
     log path) once the socket answers."""
-    from racon_tpu_torch.serve import client
-
     sock = sock or daemon_socket(work, name)
+    return await_daemon(*spawn(work, name, env, ["serve", "--socket", sock,
+                                                 "--jobs", str(jobs)],
+                               sock), name)
+
+
+def spawn(work, name, env, argv, sock):
+    """Start ``python -m racon_tpu_torch.cli <argv>`` with its output to
+    ``<work>/<name>.log``; returns (process, socket path, log path)
+    without waiting."""
     log = os.path.join(work, name + ".log")
     with open(log, "ab") as fh:
         proc = subprocess.Popen(
-            [sys.executable, "-m", "racon_tpu_torch.cli", "serve",
-             "--socket", sock, "--jobs", str(jobs)], cwd=ROOT, env=env,
-            stdout=fh, stderr=fh)
+            [sys.executable, "-m", "racon_tpu_torch.cli", *argv], cwd=ROOT,
+            env=env, stdout=fh, stderr=fh)
+    return proc, sock, log
+
+
+def await_daemon(proc, sock, log, name):
+    """Wait until the daemon (or router) at ``sock`` answers ``health``;
+    returns (process, socket path, log path)."""
+    from racon_tpu_torch.serve import client
+
     deadline = time.perf_counter() + SERVE_START_S
     while time.perf_counter() < deadline:
         if proc.poll() is not None:
@@ -1847,17 +1881,117 @@ FUSION_COUNTERS = ("fusion_dispatches", "fusion_units_fused",
                    "fused_megabatches", "fused_cross_tenant")
 
 
+def fuse_cuts(work, data) -> dict:
+    """The fusion phase's two 1 Mb cuts of the set (the first and the
+    second Mb)."""
+    return {name: cut_region(data, os.path.join(work, f"fuse_{name}"),
+                             FUSE_CUT_BP, start=k * FUSE_CUT_BP)
+            for k, name in enumerate("ab")}
+
+
+def serve_tenants(work, data, sock, threads) -> None:
+    """The serve phase's ``tenants`` part: the two 1 Mb cuts alone, then
+    together as two tenants on the daemon at ``sock``; each one's bytes
+    must be as alone."""
+    import threading
+
+    from racon_tpu_torch.serve import client
+
+    cuts = fuse_cuts(work, data)
+    solo = {}
+    for name, cut in cuts.items():
+        out, resp, wall = served(sock, serve_spec(cut, threads,
+                                                  tenant=name), name)
+        solo[name] = (out, job_line(resp, wall))
+    before = client.metrics(sock)["snapshot"]
+    both, errors = {}, []
+
+    def run(name):
+        try:
+            out, resp, wall = served(
+                sock, serve_spec(cuts[name], threads, tenant=name),
+                "tenant " + name)
+            both[name] = (out, job_line(resp, wall))
+        except BaseException as exc:      # raised below
+            errors.append(exc)
+
+    t0 = time.perf_counter()
+    workers = [threading.Thread(target=run, args=(n,)) for n in cuts]
+    for w in workers:
+        w.start()
+    for w in workers:
+        w.join(SERVE_JOB_S)
+    together = time.perf_counter() - t0
+    if errors:
+        raise errors[0]
+    after = client.metrics(sock)["snapshot"]
+    hists = after["histograms"]
+    waits = {n: {k: hists.get(f"{k}.{n}", {}).get("percentiles")
+                 for k in ("serve_queue_wait_s", "serve_tenant_wait_s")}
+             for n in cuts}
+    counters = {k: after["counters"].get(k, 0)
+                - before["counters"].get(k, 0) for k in FUSION_COUNTERS}
+    same = {n: both[n][0] == solo[n][0] for n in cuts}
+    emit("serve", part="tenants", cut_bp=FUSE_CUT_BP, identical=same,
+         solo={n: solo[n][1] for n in cuts},
+         concurrent={n: both[n][1] for n in cuts},
+         concurrent_wall_s=round(together, 3), counters=counters,
+         fusion_occupancy=(hists.get("fusion_occupancy") or {}).get(
+             "percentiles"), waits=waits)
+    if not all(same.values()):
+        raise RuntimeError(f"serve: concurrent tenants {same}")
+
+
+def serve_default(cli, work, data, base, threads) -> None:
+    """The serve phase's ``default`` part: a default-path job on the
+    first 1 Mb cut at the built-in rates, pinned, on a daemon of its
+    own, against its one-shot twin."""
+    from racon_tpu_torch.cuda.polisher import CudaPolisher
+
+    cuts = fuse_cuts(work, data)
+    pins = {"RACON_TPU_TORCH_RATE_POA_DEV":
+            str(CudaPolisher.POA_DEV_US_PER_UNIT),
+            "RACON_TPU_TORCH_RATE_POA_CPU":
+            str(CudaPolisher.POA_CPU_US_PER_UNIT),
+            "RACON_TPU_TORCH_RATE_ALIGN_DEV":
+            str(CudaPolisher.DEV_NS_PER_ROW),
+            "RACON_TPU_TORCH_RATE_ALIGN_CPU":
+            str(CudaPolisher.CPU_NS_PER_CELL),
+            "RACON_TPU_TORCH_RATE_ALIGN_WFA_DEV":
+            str(CudaPolisher.WFA_DEV_NS_PER_STEP)}
+    argv = ["-t", str(threads), "-m", "5", "-x", "-4", "-g", "-8", "-c",
+            "1", "--cudaaligner-batches", "1"]
+    one_path = os.path.join(work, "serve_default_one_shot.fasta")
+    with env_set(**{**dict.fromkeys(DEFAULT_PATH_KNOBS), **pins}):
+        _, one_wall, one_launches = counted_polish(
+            cli, argv + list(cuts["a"]), one_path)
+    proc, sock, log = start_daemon(work, "serve_b", {**base, **pins})
+    try:
+        out, resp, wall = served(sock, serve_spec(cuts["a"], threads),
+                                 "default")
+    finally:
+        stop_daemon(proc, sock)
+    same = out == read_bytes(one_path)
+    emit("serve", part="default", cut_bp=FUSE_CUT_BP, pins=pins,
+         identical=same, job=job_line(resp, wall),
+         one_shot_wall_s=round(one_wall, 3),
+         one_shot_launches=one_launches,
+         poa_split=resp["report"]["details"]["poa_split_detail"])
+    if not same:
+        raise RuntimeError("serve: the default-path job's bytes differ "
+                           "from its one-shot twin's")
+
+
 def serve_phase(cli, work, data, paths, polish_bytes, polish_wall,
                 polish_launches, batch, threads) -> None:
     """The serve daemon on the card (module docstring): cold and warm
-    jobs, a default-path job, two concurrent tenants and one SIGKILL
+    jobs, two concurrent tenants, a default-path job and one SIGKILL
     resume."""
     import signal
     import threading
 
     import torch
 
-    from racon_tpu_torch.cuda.polisher import CudaPolisher
     from racon_tpu_torch.serve import client
 
     # the daemons size their megabatches from the card's free memory
@@ -1891,87 +2025,10 @@ def serve_phase(cli, work, data, paths, polish_bytes, polish_wall,
             for name in ("poa_full", "align_wfa", "align_band"):
                 if j["launches"][name] <= 0:
                     raise RuntimeError(f"serve {tag}: no {name} launch")
-
-        cuts = {name: cut_region(data, os.path.join(work, f"fuse_{name}"),
-                                 FUSE_CUT_BP, start=k * FUSE_CUT_BP)
-                for k, name in enumerate("ab")}
-        solo = {}
-        for name, cut in cuts.items():
-            out, resp, wall = served(sock, serve_spec(cut, threads,
-                                                      tenant=name), name)
-            solo[name] = (out, job_line(resp, wall))
-        before = client.metrics(sock)["snapshot"]
-        both, errors = {}, []
-
-        def run(name):
-            try:
-                out, resp, wall = served(
-                    sock, serve_spec(cuts[name], threads, tenant=name),
-                    "tenant " + name)
-                both[name] = (out, job_line(resp, wall))
-            except BaseException as exc:      # raised below
-                errors.append(exc)
-
-        t0 = time.perf_counter()
-        workers = [threading.Thread(target=run, args=(n,)) for n in cuts]
-        for w in workers:
-            w.start()
-        for w in workers:
-            w.join(SERVE_JOB_S)
-        together = time.perf_counter() - t0
-        if errors:
-            raise errors[0]
-        after = client.metrics(sock)["snapshot"]
-        hists = after["histograms"]
-        waits = {n: {k: hists.get(f"{k}.{n}", {}).get("percentiles")
-                     for k in ("serve_queue_wait_s", "serve_tenant_wait_s")}
-                 for n in cuts}
-        counters = {k: after["counters"].get(k, 0)
-                    - before["counters"].get(k, 0) for k in FUSION_COUNTERS}
-        same = {n: both[n][0] == solo[n][0] for n in cuts}
-        emit("serve", part="tenants", cut_bp=FUSE_CUT_BP, identical=same,
-             solo={n: solo[n][1] for n in cuts},
-             concurrent={n: both[n][1] for n in cuts},
-             concurrent_wall_s=round(together, 3), counters=counters,
-             fusion_occupancy=(hists.get("fusion_occupancy") or {}).get(
-                 "percentiles"), waits=waits)
-        if not all(same.values()):
-            raise RuntimeError(f"serve: concurrent tenants {same}")
+        serve_tenants(work, data, sock, threads)
         stop_daemon(proc, sock)
         live.pop()
-
-        # ---- b: the default path at pinned rates against its one-shot
-        pins = {"RACON_TPU_TORCH_RATE_POA_DEV":
-                str(CudaPolisher.POA_DEV_US_PER_UNIT),
-                "RACON_TPU_TORCH_RATE_POA_CPU":
-                str(CudaPolisher.POA_CPU_US_PER_UNIT),
-                "RACON_TPU_TORCH_RATE_ALIGN_DEV":
-                str(CudaPolisher.DEV_NS_PER_ROW),
-                "RACON_TPU_TORCH_RATE_ALIGN_CPU":
-                str(CudaPolisher.CPU_NS_PER_CELL),
-                "RACON_TPU_TORCH_RATE_ALIGN_WFA_DEV":
-                str(CudaPolisher.WFA_DEV_NS_PER_STEP)}
-        argv = ["-t", str(threads), "-m", "5", "-x", "-4", "-g", "-8", "-c",
-                "1", "--cudaaligner-batches", "1"]
-        one_path = os.path.join(work, "serve_default_one_shot.fasta")
-        with env_set(**{**dict.fromkeys(DEFAULT_PATH_KNOBS), **pins}):
-            _, one_wall, one_launches = counted_polish(
-                cli, argv + list(cuts["a"]), one_path)
-        proc, sock, log = start_daemon(work, "serve_b", {**base, **pins})
-        live.append((proc, sock))
-        out, resp, wall = served(sock, serve_spec(cuts["a"], threads),
-                                 "default")
-        same = out == read_bytes(one_path)
-        emit("serve", part="default", cut_bp=FUSE_CUT_BP, pins=pins,
-             identical=same, job=job_line(resp, wall),
-             one_shot_wall_s=round(one_wall, 3),
-             one_shot_launches=one_launches,
-             poa_split=resp["report"]["details"]["poa_split_detail"])
-        if not same:
-            raise RuntimeError("serve: the default-path job's bytes differ "
-                               "from its one-shot twin's")
-        stop_daemon(proc, sock)
-        live.pop()
+        serve_default(cli, work, data, base, threads)
 
         # ---- d: SIGKILL mid-megabatch, restart, keyed resubmit
         from racon_tpu_torch.serve import journal as serve_journal
@@ -2036,6 +2093,334 @@ def serve_phase(cli, work, data, paths, polish_bytes, polish_wall,
                 proc.kill()
                 proc.wait()
     emit("serve", part="done",
+         phase_s=round(time.perf_counter() - t_phase, 3))
+
+
+#: contigs of the fleet phase's job: contiguous cuts of the whole set
+FLEET_CONTIGS = 4
+#: every fleet process's POA megabatch: part c kills a backend after its
+#: first one, and a pinned size makes each shard's megabatches alike
+FLEET_MEGABATCH = 2048
+#: the routers' knobs: a probe every half second, and no straggler
+#: replacements, so that each part pins which backend runs each shard
+FLEET_ROUTE_ENV = {"RACON_TPU_TORCH_ROUTE_PROBE_S": "0.5",
+                   "RACON_TPU_TORCH_SCATTER_REBALANCE": "0"}
+
+
+def fleet_data(work, data, truth, cpu) -> tuple:
+    """The whole set cut into FLEET_CONTIGS contiguous draft regions with
+    their reads, joined into one job (``tools/simulate.py:concat_sets``);
+    returns (paths, the truth segment of each contig, the draft's summed
+    distance to them)."""
+    from racon_tpu_torch.tools import simulate
+
+    draft = read_fasta(os.path.join(data, "draft.fasta"))
+    scale = len(draft) / len(truth)
+    step = len(draft) // FLEET_CONTIGS
+    bounds = [i * step for i in range(FLEET_CONTIGS)] + [len(draft)]
+    cuts = [cut_region(data, os.path.join(work, f"fleet_cut{i}"),
+                       bounds[i + 1] - bounds[i], start=bounds[i])
+            for i in range(FLEET_CONTIGS)]
+    ends = [0] + [len(truth_prefix(truth, draft[:b], scale))
+                  for b in bounds[1:-1]] + [len(truth)]
+    segs = [truth[ends[i]:ends[i + 1]] for i in range(FLEET_CONTIGS)]
+    d_draft = sum(chunked_distance(draft[bounds[i]:bounds[i + 1]], segs[i],
+                                   cpu) for i in range(FLEET_CONTIGS))
+    return simulate.concat_sets(cuts, os.path.join(work, "fleet")), segs, \
+        d_draft
+
+
+def fasta_records(fa: bytes) -> list:
+    """(name, sequence) of every record of a FASTA byte string."""
+    out = []
+    for rec in fa.split(b">")[1:]:
+        head, _, seq = rec.partition(b"\n")
+        out.append((head.split()[0].decode(), seq.replace(b"\n", b"")))
+    return out
+
+
+def compute_apps() -> dict:
+    """pid -> used memory of the card's compute processes, as
+    ``nvidia-smi --query-compute-apps=pid,used_memory`` lists them."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid,used_memory",
+         "--format=csv,noheader"], capture_output=True, text=True).stdout
+    apps = {}
+    for line in out.strip().splitlines():
+        pid, _, mem = line.partition(",")
+        if pid.strip().isdigit():
+            apps[int(pid)] = mem.strip()
+    return apps
+
+
+def card_holders(pids) -> set:
+    """The pids among ``pids`` with a card's device node (/dev/nvidia<N>)
+    open: the processes that hold a CUDA context on it."""
+    out = set()
+    for pid in pids:
+        try:
+            fds = os.listdir(f"/proc/{pid}/fd")
+        except OSError:
+            continue
+        for fd in fds:
+            try:
+                target = os.readlink(f"/proc/{pid}/fd/{fd}")
+            except OSError:
+                continue
+            if re.fullmatch(r"/dev/nvidia\d+", target):
+                out.add(pid)
+                break
+    return out
+
+
+def fleet_phase(cpu, work, data, truth, threads) -> None:
+    """The fleet on the card (module docstring): two backends and a
+    router, a routed and a scattered job, a failover, two ranks, the
+    fleet scrape and the card's processes."""
+    import base64
+    import hashlib
+    import signal
+
+    import torch
+
+    from racon_tpu_torch.obs import aggregate, export
+    from racon_tpu_torch.serve import client
+
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    paths, segs, d_draft = fleet_data(work, data, truth, cpu)
+    base = {k: v for k, v in os.environ.items()
+            if not k.startswith("RACON_TPU_TORCH_") or k in (
+                "RACON_TPU_TORCH_CACHE_DIR",)}
+    # staged, all on the card, cache off, pinned megabatches
+    staged = {**base, **STAGED_ENV, "RACON_TPU_TORCH_CACHE": "0",
+              "RACON_TPU_TORCH_POA_MEGABATCH": str(FLEET_MEGABATCH)}
+    emit("fleet", part="data", contigs=FLEET_CONTIGS,
+         draft_bp=[len(fasta_records(read_bytes(paths[2]))[i][1])
+                   for i in range(FLEET_CONTIGS)],
+         draft_distance=d_draft, seconds=round(time.perf_counter() - t0, 3))
+    live, apps_seen, holders = [], {}, set()
+
+    def sample_apps():
+        for pid, mem in compute_apps().items():
+            apps_seen.setdefault(pid, mem)
+        holders.update(card_holders(p.pid for p, _ in live))
+
+    def distance(fa: bytes) -> int:
+        recs = fasta_records(fa)
+        if [n for n, _ in recs] != [f"ctg{i}" for i in range(FLEET_CONTIGS)]:
+            raise RuntimeError(f"fleet: contigs {[n for n, _ in recs]}")
+        return sum(chunked_distance(seq, segs[i], cpu)
+                   for i, (_, seq) in enumerate(recs))
+
+    def job(sock, key, **kw):
+        """One job's (FASTA, response, client wall); the FASTA also goes
+        to ``<work>/<key>.fasta`` for a post-mortem."""
+        t = time.perf_counter()
+        resp = client.submit(sock, serve_spec(paths, threads), job_key=key,
+                             timeout=SERVE_JOB_S, **kw)
+        wall = time.perf_counter() - t
+        if not resp.get("ok"):
+            raise RuntimeError(f"fleet {key}: {resp.get('error')}")
+        fa = base64.b64decode(resp["fasta_b64"])
+        with open(os.path.join(work, key + ".fasta"), "wb") as fh:
+            fh.write(fa)
+        return fa, resp, wall
+
+    try:
+        # backends a and b, and k armed to die after its first megabatch,
+        # started together
+        procs = [spawn(work, f"fleet_{n}", env, ["serve", "--socket",
+                                                 daemon_socket(work,
+                                                               f"fleet_{n}"),
+                                                 "--jobs", "1"],
+                       daemon_socket(work, f"fleet_{n}"))
+                 for n, env in (("a", staged), ("b", staged),
+                                ("k", {**staged, "RACON_TPU_TORCH_FAULT":
+                                       "mid-megabatch:1"}))]
+        live.extend((p[0], p[1]) for p in procs)
+        (pa, sa, _), (pb, sb, _), (pk, sk, _) = [
+            await_daemon(*p, f"fleet_{n}") for p, n in zip(procs, "abk")]
+        route_env = {**base, **FLEET_ROUTE_ENV}
+        rsock = daemon_socket(work, "fleet_r")
+        pr = await_daemon(*spawn(work, "fleet_r", route_env, [
+            "route", "--socket", rsock, "--backends", f"{sa},{sb}"], rsock),
+            "fleet_r")[0]
+        live.append((pr, rsock))
+        ksock = daemon_socket(work, "fleet_rk")
+        prk = await_daemon(*spawn(work, "fleet_rk", route_env, [
+            "route", "--socket", ksock, "--backends", f"{sk},{sb}"], ksock),
+            "fleet_rk")[0]
+        live.append((prk, ksock))
+        sample_apps()
+
+        # ---- a: the job whole, through the router
+        whole, resp, wall_a = job(rsock, "fleet-routed")
+        d_pol = distance(whole)
+        why = [e for e in client.flight(rsock, job_key="fleet-routed")[
+            "events"] if e["kind"] == "route"]
+        launches = resp["report"]["details"]["launches"]
+        emit("fleet", part="routed", bytes=len(whole),
+             sha1=hashlib.sha1(whole).hexdigest(),
+             draft_distance=d_draft, polished_distance=d_pol,
+             backend=resp["routed_backend"],
+             why=[{k: e.get(k) for k in ("backend", "round", "load",
+                                         "predicted_wall_s")}
+                  for e in why], wall_s=resp["wall_s"],
+             client_wall_s=round(wall_a, 3), launches=launches)
+        if d_pol > d_draft / 10:
+            raise RuntimeError(f"fleet routed: distance {d_pol} > draft "
+                               f"{d_draft} / 10")
+        if launches["poa_full"] <= 0 or launches["align_wfa"] <= 0:
+            raise RuntimeError(f"fleet routed: launches {launches}")
+
+        # ---- b: two target shards, staged, one on each backend
+        fa, resp, wall_b = job(rsock, "fleet-scatter", shards=2)
+        rep = resp["report"]
+        shards = [{"backend": ps["backend"], "wall_s": ps["wall_s"],
+                   "parse_skipped_bytes": sr["run"]["gauges"].get(
+                       "host.parse_skipped_bytes"),
+                   "staged_bytes": sr["run"]["gauges"].get(
+                       "host.staged_bytes"),
+                   "launches": sr["details"]["launches"]}
+                  for ps, sr in zip(rep["per_shard"], rep["shard_reports"])]
+        emit("fleet", part="scattered", identical=fa == whole,
+             shards=shards, gather_wall_s=resp["wall_s"],
+             client_wall_s=round(wall_b, 3),
+             routed_wall_s=round(wall_a, 3),
+             gather_over_routed=round(wall_b / wall_a, 3))
+        if fa != whole or {s["backend"] for s in shards} != {sa, sb}:
+            raise RuntimeError(f"fleet scattered: identical {fa == whole}, "
+                               f"backends {[s['backend'] for s in shards]}")
+        if any(not s["parse_skipped_bytes"] for s in shards):
+            raise RuntimeError(f"fleet scattered: a shard parsed it all "
+                               f"{shards}")
+
+        # ---- c: the same, with shard 0's backend killed mid-shard
+        fa, resp, wall_c = job(ksock, "fleet-failover", shards=2)
+        rc = pk.wait(timeout=60)
+        counters = client.route_status(ksock)["counters"]
+        events = client.flight(ksock, job_key="fleet-failover")["events"]
+        key0 = "fleet-failover-shard-0of2"
+        failed = [e for e in events if e["kind"] == "route_failover"]
+        won = [e for e in events if e["kind"] == "route_scatter_shard"
+               and e.get("key") == key0 and e.get("winner")]
+        done = [r for r in client.journal_query(sb, job_key=key0)["records"]
+                if r.get("kind") == "done"]
+        emit("fleet", part="failover", identical=fa == whole,
+             killed_rc=rc, route_failover=counters.get("route_failover", 0),
+             failover_keys=[e.get("job_key") for e in failed],
+             survivor=won[0]["backend"] if won else None,
+             survivor_done_records=len(done),
+             backends=resp["scatter"]["backends"],
+             wall_s=resp["wall_s"], client_wall_s=round(wall_c, 3))
+        if fa != whole or rc != -signal.SIGKILL \
+                or counters.get("route_failover", 0) < 1 \
+                or key0 not in [e.get("job_key") for e in failed] \
+                or not won or won[0]["backend"] != sb or not done:
+            raise RuntimeError("fleet failover: the survivor did not run "
+                               "the dead backend's shard under its key, or "
+                               "the bytes differ")
+
+        # ---- d: the one-shot CLI as two ranks at once
+        argv = ["-t", str(threads), "-m", "5", "-x", "-4", "-g", "-8", "-c",
+                "1", "--cudaaligner-batches", "1", *paths]
+        ranks = []
+        for r in range(2):
+            out = open(os.path.join(work, f"fleet_part{r}.fasta"), "wb")
+            err = open(os.path.join(work, f"fleet_part{r}.log"), "wb")
+            env = {**staged, "RACON_TPU_TORCH_COORD": "localhost:0",
+                   "RACON_TPU_TORCH_NPROC": "2",
+                   "RACON_TPU_TORCH_RANK": str(r)}
+            ranks.append((subprocess.Popen(
+                [sys.executable, "-m", "racon_tpu_torch.cli", *argv],
+                cwd=ROOT, env=env, stdout=out, stderr=err),
+                out, err, time.perf_counter()))
+            live.append((ranks[-1][0], None))
+        rank_walls = [None, None]
+        while any(w is None for w in rank_walls):
+            sample_apps()
+            for r, (proc, out, err, t) in enumerate(ranks):
+                if rank_walls[r] is None and proc.poll() is not None:
+                    rank_walls[r] = round(time.perf_counter() - t, 3)
+                    out.close()
+                    err.close()
+            time.sleep(0.5)
+        parts = [read_bytes(os.path.join(work, f"fleet_part{r}.fasta"))
+                 for r in range(2)]
+        rcs = [proc.returncode for proc, _, _, _ in ranks]
+        emit("fleet", part="ranks", identical=parts[0] + parts[1] == whole,
+             rcs=rcs, walls_s=rank_walls,
+             contigs=[[n for n, _ in fasta_records(p)] for p in parts])
+        if rcs != [0, 0] or parts[0] + parts[1] != whole:
+            raise RuntimeError(f"fleet ranks: rcs {rcs}, "
+                               f"{[len(p) for p in parts]} bytes")
+
+        # ---- e: the fleet scrape against the daemons' own registries
+        snaps = {}
+        for sock in (sa, sb):
+            m = client.metrics(sock)
+            snaps[m["identity"]["daemon_id"]] = m
+        out = subprocess.run(
+            [sys.executable, "-m", "racon_tpu_torch.cli", "metrics",
+             "--fleet", f"{sa},{sb}", "--json"], cwd=ROOT, env=base,
+            capture_output=True, timeout=120)
+        if out.returncode != 0:
+            raise RuntimeError(f"fleet metrics: {out.stderr[-2000:]}")
+        doc = json.loads(out.stdout)
+        merged = aggregate.merge_snapshots(
+            {k: m["snapshot"] for k, m in snaps.items()})
+        keys = sorted({k for m in snaps.values()
+                       for k in m["snapshot"]["counters"]
+                       if k.startswith("cuda_kernel_launches.")})
+        counters = {k: {"fleet": doc["merged"]["counters"].get(k, 0),
+                        "daemons": [m["snapshot"]["counters"].get(k, 0)
+                                    for m in snaps.values()]}
+                    for k in keys}
+        q_bad = [name for name, h in doc["merged"]["histograms"].items()
+                 if {q: export.percentiles(h).get(q) for q in
+                     ("p50", "p90", "p99")} != {
+                         q: export.percentiles(
+                             merged["histograms"][name]).get(q)
+                         for q in ("p50", "p90", "p99")}]
+        emit("fleet", part="fleet_metrics", alive=doc["alive"],
+             launch_counters=counters,
+             histograms=len(doc["merged"]["histograms"]),
+             quantile_mismatches=q_bad)
+        if doc["alive"] != 2 or not keys or q_bad or any(
+                c["fleet"] != sum(c["daemons"]) or c["fleet"] <= 0
+                for c in counters.values()):
+            raise RuntimeError(f"fleet metrics: {counters}, {q_bad}")
+
+        # ---- f: the card's processes and each backend's memory
+        sample_apps()
+        memory = {sock: client.metrics(sock)["device_memory"]
+                  for sock in (sa, sb)}
+        pids = {"a": pa.pid, "b": pb.pid, "k": pk.pid, "router": pr.pid,
+                "router_k": prk.pid,
+                "ranks": [proc.pid for proc, _, _, _ in ranks],
+                "chip_smoke": os.getpid()}
+        emit("fleet", part="fleet_card", card=card_line(),
+             max_memory_reserved={s: m["max_reserved_bytes"]
+                                  for s, m in memory.items()},
+             compute_apps={str(p): m for p, m in apps_seen.items()},
+             pids=pids, card_holders=sorted(holders))
+        if {pr.pid, prk.pid} & (holders | set(apps_seen)):
+            raise RuntimeError("fleet: a router holds a CUDA context")
+        if not {pa.pid, pb.pid} <= holders:
+            raise RuntimeError(f"fleet: a backend holds no card device "
+                               f"node: {sorted(holders)}")
+        for proc, sock in reversed(live):
+            if sock is not None:
+                stop_daemon(proc, sock)
+        live.clear()
+    finally:
+        for proc, sock in live:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    emit("fleet", part="done",
          phase_s=round(time.perf_counter() - t_phase, 3))
 
 
@@ -2180,6 +2565,20 @@ def seed_buffers(reads: str, draft: str) -> list:
     bufs = [b"".join(b) for b in chain._batches(datas, chain.SEED_BATCH)]
     bufs += [s.data for s in load_sequences(draft)]
     return [minimizers.encode(b) for b in bufs]
+
+
+def seed_bound(reads: str, draft: str, k: int = 13) -> dict:
+    """The seed words' main-path bound of one round on these inputs: the
+    buffers the round seeds, each code read once and its forward and
+    reverse words (4 + 4 bytes a k-mer) written once, or its operations,
+    whichever takes longer."""
+    nbytes = ops = 0
+    for codes in seed_buffers(reads, draft):
+        nk = max(0, int(codes.size) - k + 1)
+        nbytes += int(codes.size) + 8 * nk
+        ops += OPS_PER_SEED_WORD * nk
+    ms, by = bound(nbytes, 0, ops)
+    return {"bound_ms": round(ms, 4), "bound_by": by, "bytes": nbytes}
 
 
 def conv_words(codes, k: int):
@@ -2376,29 +2775,30 @@ def map_quality(reads: str, draft: str, data: str) -> dict:
     PAF's, recall and precision against truth.json (>= 0.95 / 0.90,
     the JAX package's bar), the reads whose kept overlap would be
     misplaced, map_s and the seed kernel's launches."""
-    from racon_tpu_torch.cuda import seed_words as sw
+    from racon_tpu_torch.cuda import build
     from racon_tpu_torch.overlap import map_files
 
     with open(os.path.join(data, "truth.json")) as fh:
         truth_reads = json.load(fh)["reads"]
     with open(os.path.join(data, "reads2draft.paf"), "rb") as fh:
         paf_overlaps = sum(1 for _ in fh)
-    sw.LAUNCHES = 0
+    build.zero_launch_counts()
     t0 = time.perf_counter()
     overlaps, stats = map_files(reads, draft)
     map_s = time.perf_counter() - t0
+    seed_launches = build.launch_counts()["seed_words"]
     rec, prec = recall_precision(
         [(o.q_name, o.strand, o.t_begin, o.t_end) for o in overlaps],
         truth_reads)
     res = {"reads": stats["queries"], "overlaps": stats["overlaps"],
            "paf_overlaps": paf_overlaps, "recall": round(rec, 4),
            "precision": round(prec, 4), "map_s": round(map_s, 3),
-           "seed_launches": sw.LAUNCHES, "stats": stats,
+           "seed_launches": seed_launches, "stats": stats,
            **kept_misplaced(overlaps, truth_reads)}
     emit("map_quality", **res)
-    if rec < 0.95 or prec < 0.90 or sw.LAUNCHES <= 0:
+    if rec < 0.95 or prec < 0.90 or seed_launches <= 0:
         raise RuntimeError(f"map_quality: recall {rec:.4f}, precision "
-                           f"{prec:.4f}, seed launches {sw.LAUNCHES}")
+                           f"{prec:.4f}, seed launches {seed_launches}")
     return res
 
 
@@ -2480,6 +2880,8 @@ def map_rounds(cli, cpu, work, data, reads, draft, truth, threads, dev,
              cache_hit_by_round=[r["cache_hit"] for r in per_round],
              seed_lane_ms=round(seed_lane.get("busy_s", 0.0) * 1e3, 3),
              seed_lane_dispatches=seed_lane.get("n_dispatches", 0),
+             seed_round1_bound=seed_bound(region["reads"],
+                                          region["draft"]),
              secondary_dropped=int(pol.metrics.value(
                  "map_secondary_dropped")),
              card_states=pol.card_states, draft_distance=region["d_draft"])
@@ -2528,7 +2930,8 @@ def main(argv=None) -> int:
     ap.add_argument("--genome-len", type=int, default=4_641_652)
     ap.add_argument("--threads", type=int, default=os.cpu_count() or 8)
     ap.add_argument("--only", choices=["band", "wfa", "default", "traced",
-                                       "map", "cache", "fusion", "serve"],
+                                       "map", "cache", "fusion", "serve",
+                                       "fleet"],
                     default=None,
                     help="band / wfa: env, build, dataset, align_check and "
                     "band_card / wfa_card only; default: env, build, "
@@ -2538,7 +2941,8 @@ def main(argv=None) -> int:
                     "and map_rounds with the whole set's --rounds 2 run; "
                     "cache / fusion: env, build, dataset and that phase "
                     "only; serve: env, build, dataset, the staged polish "
-                    "and serve; then exit 0 without the result line")
+                    "and serve; fleet: env, build, dataset and fleet; then "
+                    "exit 0 without the result line")
     ap.add_argument("--keep", default=None,
                     help="directory to copy the traced runs' traces and "
                     "reports to (default: none kept)")
@@ -2621,7 +3025,7 @@ def main(argv=None) -> int:
                    "-8", "-c", "1", "--cudaaligner-batches", "1", reads,
                    paf, draft]
     out_path = os.path.join(work, "polished.fasta")
-    if args.only in (None, "default", "map", "cache"):
+    if args.only in (None, "default", "map", "cache", "fleet"):
         truth = read_fasta(os.path.join(data, "genome.fasta"))
         d_draft = chunked_distance(read_fasta(draft), truth, cpu)
     if args.only is not None:
@@ -2636,6 +3040,8 @@ def main(argv=None) -> int:
             cache_default(cli, work, argv_polish)
         elif args.only == "fusion":
             fusion_phase(work, data, args.threads)
+        elif args.only == "fleet":
+            fleet_phase(cpu, work, data, truth, args.threads)
         elif args.only == "serve":
             with env_set(**STAGED_ENV):
                 pol, wall, launches = counted_polish(cli, argv_polish,
@@ -2750,6 +3156,9 @@ def main(argv=None) -> int:
     # ---- serve (the daemon: served jobs on the card) --------------------
     serve_phase(cli, work, data, (reads, paf, draft), read_bytes(out_path),
                 wall, launches, polisher.poa_batch_size, args.threads)
+
+    # ---- fleet (a router, two backends, shards, a failover, two ranks) ---
+    fleet_phase(cpu, work, data, truth, args.threads)
 
     # ---- polish_default, pipeline_bytes (the default path, counted) ------
     default_path(cli, cpu, work, reads, paf, draft, truth, d_draft,

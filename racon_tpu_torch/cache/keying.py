@@ -64,6 +64,25 @@ EPOCH_EXCLUDE = frozenset({
     "RACON_TPU_TORCH_JOURNAL_DIR",
     "RACON_TPU_TORCH_JOURNAL_FSYNC",
     "RACON_TPU_TORCH_FAULT",
+    # the fleet: where a job, a shard or a rank runs, and whether a
+    # shard's parse is staged (pinned byte-identical to the full parse
+    # by tests/test_torch_scatter.py), never what a unit computes
+    "RACON_TPU_TORCH_ROUTE_PROBE_S",
+    "RACON_TPU_TORCH_ROUTE_PROBE_TIMEOUT_S",
+    "RACON_TPU_TORCH_ROUTE_BREAKER_FAILS",
+    "RACON_TPU_TORCH_ROUTE_BREAKER_COOLDOWN_S",
+    "RACON_TPU_TORCH_ROUTE_AFFINITY",
+    "RACON_TPU_TORCH_ROUTE_TCP",
+    "RACON_TPU_TORCH_SCATTER_MIN_WALL_S",
+    "RACON_TPU_TORCH_SCATTER_MAX_SHARDS",
+    "RACON_TPU_TORCH_SCATTER_REBALANCE",
+    "RACON_TPU_TORCH_STAGE",
+    "RACON_TPU_TORCH_FLEET_INTERVAL_S",
+    "RACON_TPU_TORCH_FLEET_TIMEOUT_S",
+    "RACON_TPU_TORCH_FLEET_STALE_S",
+    "RACON_TPU_TORCH_NPROC",
+    "RACON_TPU_TORCH_RANK",
+    "RACON_TPU_TORCH_COORD",
 })
 
 #: every source on a cached unit's result path (package-relative

@@ -16,15 +16,22 @@ Chrome trace of the run and ``--metrics-json`` its run report
 (``racon_tpu_torch/obs``), both after the FASTA is flushed, as the JAX
 package's CLI does (racon_tpu/cli.py:393-444).
 
-``serve``, ``submit`` and ``status`` are the serve daemon's subcommands
+``serve``, ``submit`` and ``status`` are the serve daemon's subcommands,
+``route`` the fleet router's and ``metrics`` the fleet scrape's
 (``racon_tpu_torch/serve``), dispatched before option parsing, as the
-JAX package's CLI does (racon_tpu/cli.py:286-301).
+JAX package's CLI does (racon_tpu/cli.py:286-307).  With
+``RACON_TPU_TORCH_COORD`` set and ``RACON_TPU_TORCH_NPROC`` > 1 the
+one-shot form polishes and emits only rank ``RACON_TPU_TORCH_RANK``'s
+slice of the targets (``racon_tpu_torch/parallel/multihost.py``), on
+``cuda:{rank % device count}`` unless ``--device`` names one.
 
     python -m racon_tpu_torch.cli [options] <sequences> <overlaps> <targets>
     python -m racon_tpu_torch.cli [run] [options] [--rounds N] <sequences> <targets>
     python -m racon_tpu_torch.cli serve --socket PATH [--jobs N] [--device D]
     python -m racon_tpu_torch.cli submit --socket PATH [options] <inputs>
     python -m racon_tpu_torch.cli status --socket PATH [--json]
+    python -m racon_tpu_torch.cli route --socket PATH --backends S1,S2,...
+    python -m racon_tpu_torch.cli metrics (--socket PATH | --fleet S1,S2,...)
 """
 
 from __future__ import annotations
@@ -40,6 +47,7 @@ from racon_tpu_torch.io.parsers import (MalformedInputError,
 from racon_tpu_torch.obs import flight as obs_flight
 from racon_tpu_torch.obs import provenance
 from racon_tpu_torch.overlap.rounds import polish_rounds
+from racon_tpu_torch.parallel import multihost
 
 USAGE = """usage: racon_tpu_torch [options ...] <sequences> <overlaps> <target sequences>
        racon_tpu_torch [run] [options ...] [--rounds N] <sequences> <target sequences>
@@ -47,8 +55,12 @@ USAGE = """usage: racon_tpu_torch [options ...] <sequences> <overlaps> <target s
                        [--idle-timeout S] [--device cuda|cpu]
        racon_tpu_torch submit --socket PATH [--priority P] [--tenant T]
                        [--class interactive|batch] [--job-key K]
-                       [--retry N] [options ...] <inputs as above>
+                       [--retry N] [--shards K|auto] [options ...]
+                       <inputs as above>
        racon_tpu_torch status --socket PATH [--json]
+       racon_tpu_torch route --socket PATH --backends S1,S2,... [--tcp H:P]
+       racon_tpu_torch metrics (--socket PATH | --fleet S1,S2,...)
+                       [--json | --prometheus]
 
     <sequences>  FASTA/FASTQ (gzip allowed) reads used for correction
     <overlaps>   MHAP/PAF/SAM (gzip allowed) overlaps of reads and
@@ -219,14 +231,19 @@ def main(argv=None, out=None):
     trace; with ``RACON_TPU_TORCH_FLIGHT_DUMP`` set, the flight ring,
     which an unhandled exception also dumps there."""
     argv = sys.argv[1:] if argv is None else argv
-    if argv and argv[0] in ("serve", "submit", "status"):
+    if argv and argv[0] in ("serve", "route", "submit", "status",
+                            "metrics"):
         # the serve tier's subcommands parse their own flags and exit
         if argv[0] == "serve":
             from racon_tpu_torch.serve.server import main as entry
+        elif argv[0] == "route":
+            from racon_tpu_torch.serve.router import main as entry
         elif argv[0] == "submit":
             from racon_tpu_torch.serve.client import main_submit as entry
-        else:
+        elif argv[0] == "status":
             from racon_tpu_torch.serve.client import main_status as entry
+        else:
+            from racon_tpu_torch.serve.fleet import main_metrics as entry
         raise SystemExit(entry(argv[1:]))
     if argv and argv[0] == "run":
         # the one-shot form by name: `run reads draft` maps and polishes
@@ -244,7 +261,12 @@ def main(argv=None, out=None):
               file=sys.stderr)
         print(USAGE, end="", file=sys.stderr)
         raise SystemExit(1)
-    device = resolve_device(opts["device"])
+    try:
+        # a rank of the multi-process mode takes its own card
+        device = resolve_device(multihost.rank_device(opts["device"]))
+    except ValueError as exc:
+        print(f"[racon_tpu_torch::] error: {exc}!", file=sys.stderr)
+        raise SystemExit(1)
     if opts["trace"]:
         # one run per trace file
         obs.TRACER.clear()

@@ -138,6 +138,19 @@ class Polisher:
         self._first_window_id: List[int] = []
         # set when the streaming pipeline counted coverage already
         self._coverage_counted = False
+        #: target ownership mask (None: every target is this process's):
+        #: a rank's slice (parallel/multihost.py) or a served sub-job's
+        #: target shard
+        self._owned_targets: Optional[List[bool]] = None
+        #: ``(index, count)`` of a scattered sub-job (serve/session.py)
+        self._target_shard = None
+        #: the router's staged-input hint of a scattered sub-job
+        #: (io/staging.py), validated before use
+        self._stage_hint = None
+        #: set by the rounds driver for rounds 2+ of a rank or a shard:
+        #: the draft is round 1's output, which holds only the owned
+        #: targets, so every one of them is owned (overlap/rounds.py)
+        self._split_draft = False
         self.stage_walls: Dict[str, float] = {}
         # per-run metrics registry: every write also reaches the
         # process-wide REGISTRY; the --metrics-json report reads it
@@ -181,6 +194,7 @@ class Polisher:
         if targets_size == 0:
             raise InvalidInputError("empty target sequences set!")
         self._targets_size = targets_size
+        self._set_owned_targets(targets_size)
 
         # names (PAF, SAM) and 0-based file ids (MHAP): id_to_id keys
         # are id << 1 | 1 for targets, id << 1 | 0 for reads
@@ -260,7 +274,10 @@ class Polisher:
         if mapping:
             self.stage_walls["map"] = float(
                 self.metrics.value("host.map_s", 0.0))
-        if not overlaps:
+        # a rank or a shard may own no overlaps (its targets drew none);
+        # only a run that owns every target treats an empty set as
+        # invalid input
+        if not overlaps and self._owned_targets is None:
             raise InvalidInputError("empty overlap set!")
         self.logger.log("[racon_tpu_torch::Polisher::initialize] loaded "
                         "overlaps")
@@ -288,6 +305,62 @@ class Polisher:
         self._wall("windows", t0)
         self.logger.log("[racon_tpu_torch::Polisher::initialize] "
                         "transformed data into windows")
+
+    def _set_owned_targets(self, targets_size: int) -> None:
+        """The ownership mask: a rank's slice of the targets in the
+        multi-process mode, else a scattered sub-job's shard, else None.
+        It is a mask and not a slice, so every id mapping (MHAP's
+        order-based ids among them) still sees the whole target set."""
+        from racon_tpu_torch.parallel import multihost
+
+        if self._split_draft:
+            self._owned_targets = [True] * targets_size
+            return
+        nproc, rank = multihost.maybe_initialize()
+        self._owned_targets = None
+        if nproc > 1:
+            index, count, what = rank, nproc, "rank"
+        elif self._target_shard:
+            (index, count), what = self._target_shard, "target shard"
+        else:
+            return
+        sl = multihost.target_slice(targets_size, count, index)
+        self._owned_targets = [sl.start <= i < sl.stop
+                               for i in range(targets_size)]
+        self.logger.log(f"[racon_tpu_torch::Polisher::initialize] {what} "
+                        f"{index}/{count}: targets [{sl.start}, "
+                        f"{sl.stop})")
+
+    def _configure_stage(self):
+        """Apply the staged-input plan to the overlap parser before the
+        parse: a validated hint from the router wins; a sharded polisher
+        with no valid hint builds the index from its own line tables;
+        whatever cannot be exact (staging off, an in-memory source,
+        non-PAF input, malformed rows) takes the full parse (None)."""
+        from racon_tpu_torch.io import staging
+
+        if self._owned_targets is None or not staging.stage_enabled() \
+                or not hasattr(self.oparser, "set_stage"):
+            return None
+        plan = None
+        if self._stage_hint is not None:
+            plan = staging.plan_from_hint(
+                self._stage_hint, self.oparser.path, self._target_shard)
+        if plan is None:
+            names = [self.sequences[i].name
+                     for i in range(self._targets_size)]
+            index = staging.get_index(self.oparser.path, names)
+            if index is None:
+                return None
+            plan = index.ranges_for(self._owned_targets)
+            plan["total_bytes"] = index.total_bytes
+        self.oparser.set_stage(plan["ranges"])
+        self.metrics.set("host.staged_bytes",
+                         int(plan.get("staged_bytes", 0)))
+        self.metrics.set("host.parse_skipped_bytes",
+                         max(0, int(plan.get("total_bytes", 0))
+                             - int(plan.get("staged_bytes", 0))))
+        return plan
 
     def _map_device(self):
         """Where the mapper builds its seed words: numpy on the host,
@@ -340,6 +413,7 @@ class Polisher:
             # internal mapping: the same loop, fed from an in-memory
             # single-chunk source instead of a file parser
             self.oparser = _MappedOverlapSource(self._discover_overlaps())
+        self._configure_stage()
         overlaps: List[Optional[Overlap]] = []
 
         def remove_invalid(begin: int, end: int) -> None:
@@ -379,8 +453,17 @@ class Polisher:
             if not status:
                 remove_invalid(c, len(overlaps))
                 c = len(overlaps)
+            owned = self._owned_targets
             for i in range(l, c):
                 if overlaps[i] is None:
+                    continue
+                if owned is not None and not owned[overlaps[i].t_id]:
+                    # another rank or shard owns this target.  The drop
+                    # comes after remove_invalid (the longest overlap of
+                    # a query is chosen over every target, as in one
+                    # process) and before the flags, so no reverse
+                    # complement is built for a read this one never uses
+                    overlaps[i] = None
                     continue
                 if overlaps[i].strand:
                     has_reverse_data[overlaps[i].q_id] = True
@@ -466,14 +549,19 @@ class Polisher:
 
     def _create_windows(self, targets_size: int,
                         window_type: WindowType) -> None:
-        """Backbone windows of every target.  Idempotent: the streaming
-        pipeline creates them before the align stage, the staged path
-        here."""
+        """Backbone windows of every owned target.  Idempotent: the
+        streaming pipeline creates them before the align stage, the
+        staged path here.  An unowned target gets none, so ``polish``
+        emits only owned targets, in target order."""
         if self.windows:
             return
         w = self.window_length
         first_window_id = [0] * (targets_size + 1)
+        owned = self._owned_targets
         for i in range(targets_size):
+            if owned is not None and not owned[i]:
+                first_window_id[i + 1] = first_window_id[i]
+                continue
             data = self.sequences[i].data
             quality = self.sequences[i].quality
             k = 0

@@ -32,7 +32,6 @@ tensors and runs ``band_align_reference`` for CPU tensors.
 
 from __future__ import annotations
 
-import threading
 from typing import Tuple
 
 import numpy as np
@@ -51,11 +50,6 @@ CTR_LOG = 10
 # per-row center advance cap: the previous row is realigned by at most
 # 2 quanta (256 columns), so a knot segment advances <= 255 per row
 CTR_SLOPE_MAX = 255
-
-#: kernel launches made by ``band_align`` (plain-version calls excluded)
-LAUNCHES = 0
-# guards the count: launches may come from several threads
-_LAUNCH_LOCK = threading.Lock()
 
 
 def n_ctr(lq: int) -> int:
@@ -241,7 +235,6 @@ def band_align(q, t, ql, tl, ctr, *, wb: int, warps: int = 0):
     launch the kernel with ``warps`` warps per pair (0: the kernel's
     choice from the batch size; each thread takes wb / (32 x warps)
     columns, a multiple of 8); CPU tensors run the plain version."""
-    global LAUNCHES
     b, lq, lt = check_inputs(q, t, ql, tl, ctr, wb)
     if warps not in (0, 1, 2, 4, 8) or (warps and wb % (256 * warps)):
         raise ValueError(f"warps={warps} per pair does not fit wb={wb}")
@@ -273,8 +266,7 @@ def band_align(q, t, ql, tl, ctr, *, wb: int, warps: int = 0):
         raise RuntimeError(f"align_band kernel launch failed: "
                            f"{build.error_string('align_band', err)} "
                            f"({err})")
-    with _LAUNCH_LOCK:
-        LAUNCHES += 1
+    build.count_launch("align_band")
     return tape, meta
 
 

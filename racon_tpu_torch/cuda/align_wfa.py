@@ -32,7 +32,6 @@ along the JAX package's 32-row match words (``wfa_match_words``).
 
 from __future__ import annotations
 
-import threading
 from typing import Tuple
 
 import numpy as np
@@ -49,11 +48,6 @@ MAX_DIM = 1 << 14            # longest row: the history is int16
 SMEM_MAX = 232_448           # shared memory a block may opt into
 WIN = 32                     # kernel's traceback window: steps (kWin)
 SYNC_WORDS = 4               # kernel's per-block exchange words (kSync)
-
-#: kernel launches made by ``wfa_align`` (plain-version calls excluded)
-LAUNCHES = 0
-# guards the count: launches may come from several threads
-_LAUNCH_LOCK = threading.Lock()
 
 
 def wfa_wd(emax: int) -> int:
@@ -138,7 +132,6 @@ def wfa_align(q, t, ql, tl, *, emax: int, lmax: int):
     for it, and the kernel marks a pair past it with meta[:, 0] =
     ``TOO_LONG``; CPU tensors run the plain version, after raising on a
     pair past it."""
-    global LAUNCHES
     b, lq = check_inputs(q, t, ql, tl, emax)
     if not 1 <= lmax <= lq:
         raise ValueError(f"lmax={lmax} outside [1, lq={lq}]")
@@ -173,8 +166,7 @@ def wfa_align(q, t, ql, tl, *, emax: int, lmax: int):
     if err != 0:
         raise RuntimeError(f"align_wfa kernel launch failed: "
                            f"{build.error_string('align_wfa', err)} ({err})")
-    with _LAUNCH_LOCK:
-        LAUNCHES += 1
+    build.count_launch("align_wfa")
     return tape, meta
 
 

@@ -143,5 +143,30 @@ def load(name: str) -> ctypes.CDLL:
         return lib
 
 
+#: prefix of each kernel's launch counter in the process registry
+LAUNCH_COUNTER = "cuda_kernel_launches."
+
+
+def count_launch(name: str) -> None:
+    """Count one launch of kernel ``name``.  Its wrapper calls this
+    where it launches the kernel and nowhere else (a plain-version call
+    is no launch); the serve tier's per-job deltas, the fleet scrape and
+    chip_smoke.py read the counters."""
+    REGISTRY.add(LAUNCH_COUNTER + name)
+
+
+def launch_counts() -> Dict[str, int]:
+    """Every kernel's launch count in this process now."""
+    return {name: int(REGISTRY.value(LAUNCH_COUNTER + name, 0))
+            for name in SOURCES}
+
+
+def zero_launch_counts() -> None:
+    """Set every kernel's launch count to 0: an in-process caller that
+    counts one run from 0 (a daemon never does)."""
+    for name in SOURCES:
+        REGISTRY.zero(LAUNCH_COUNTER + name)
+
+
 def error_string(name: str, err: int) -> str:
     return getattr(load(name), f"{name}_error_string")(err).decode()

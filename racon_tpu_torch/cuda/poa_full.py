@@ -31,7 +31,6 @@ arithmetic written out, not a fast path.
 
 from __future__ import annotations
 
-import threading
 from typing import List, Tuple
 
 import numpy as np
@@ -60,11 +59,6 @@ RING_ROWS = 8         # DP rows in the ring; a row is read from it
 PRED_MIRROR = 4       # pred ids per node in shared memory
 MAX_PREDS = 16        # pred slots (the consensus masks are 16 bits)
 SMEM_MAX = 232_448    # dynamic shared memory one block may opt in to
-
-#: kernel launches made by ``poa_full`` (plain-version calls excluded)
-LAUNCHES = 0
-# guards the count: launches may come from several threads
-_LAUNCH_LOCK = threading.Lock()
 
 
 def band_width(lp: int, banded: bool = False) -> int:
@@ -214,7 +208,6 @@ def poa_full(seqs, wts, meta, nlay, bblen, *, v: int, lp: int, wb: int,
     graph of ``first_pass_nodes(v)`` nodes, the second with all ``v``
     for the windows that outgrew it (device-side hand-over, no host
     synchronisation); CPU tensors run the plain version."""
-    global LAUNCHES
     b, d1 = check_inputs(seqs, wts, meta, nlay, bblen, v=v, lp=lp,
                          wb=wb, p=p, s=s, a=a)
     if stats is not None and (stats.dtype != torch.int32
@@ -260,8 +253,7 @@ def poa_full(seqs, wts, meta, nlay, bblen, *, v: int, lp: int, wb: int,
             raise RuntimeError(
                 f"poa_full kernel launch failed: "
                 f"{build.error_string('poa_full', err)} ({err})")
-        with _LAUNCH_LOCK:
-            LAUNCHES += 1
+        build.count_launch("poa_full")
         if timer is not None:
             timer.mark()
     return cons, mout

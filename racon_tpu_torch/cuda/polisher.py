@@ -179,6 +179,12 @@ class CudaPolisher(Polisher):
     # the ladder's rungs: WFA e-step caps, then band widths
     WFA_RUNGS = (512, 1024, 2048)
     BAND_RUNGS = (2048, 4096, 8192)
+    # the divergence probe (_probe_divergence): a target with n pending
+    # pairs CPU-aligns min(PROBE_PAIRS, n // PROBE_EVERY) of them, and
+    # one left with fewer than PROBE_MIN prices at the fixed priors
+    PROBE_PAIRS = 9
+    PROBE_EVERY = 32
+    PROBE_MIN = 3
     # POA megabatches in flight, in the stage and in the speculative
     # consumer
     PIPE_DEPTH = 2
@@ -243,6 +249,8 @@ class CudaPolisher(Polisher):
         # align ladder counters
         self.align_probe_ratio = 1 / 3      # p75 of the probe
         self.align_probe_p50 = 1 / 5
+        #: target id -> (p50, p75) of its own probe (``_probe_divergence``)
+        self._probe_by_target = {}
         self.align_eligible = 0             # pairs the ladder may take
         self.align_probed = 0               # of those, probed on the CPU
         self.align_over_length = 0          # > max_align_dim: CPU
@@ -1137,19 +1145,40 @@ class CudaPolisher(Polisher):
                     sum(w for w, _ in chunks) * 1e9 / dev_u)
 
     def _probe_divergence(self, pending) -> None:
-        """CPU-align a deterministic spread of 9 pending pairs; their p50
-        and p75 of edit distance / dimension price the rungs and the
-        split.  Probed pairs keep their breaking points and leave
-        ``pending``."""
-        n = len(pending)
-        if n < 4:
-            return
-        idxs = sorted({min(n - 1, int(q * n))
-                       for q in (0.1, 0.2, 0.3, 0.4, 0.5,
-                                 0.6, 0.7, 0.8, 0.9)})
+        """CPU-align a deterministic spread of each target's pending
+        pairs: one for every ``PROBE_EVERY``, at most ``PROBE_PAIRS``,
+        none below ``PROBE_MIN``.  Each target's p50 and p75 of edit
+        distance / dimension price its pairs' rungs
+        (``_probe_by_target``), and all the probes' the split.  Probed
+        pairs keep their breaking points and leave ``pending``.
 
-        def one(i):
-            d, o = pending[i]
+        Per target, and not over the whole set as in the JAX package
+        (racon_tpu/tpu/polisher.py:_pallas_align): a pair's WFA or band
+        rung then depends on its own target's overlaps alone, and the
+        two engines' CIGARs differ, so a target-sharded job
+        (serve/scatter.py, parallel/multihost.py) writes the unsharded
+        bytes on the card too.  The budget keeps the probe under 1/32 of
+        the pairs however fragmented the draft: 9 probes over 100
+        contigs' targets would take 900 pairs off the card.  A target of
+        288 pairs or more probes 9, as the JAX package's whole job
+        does."""
+        by_target = {}
+        for k, (_, o) in enumerate(pending):
+            by_target.setdefault(o.t_id, []).append(k)
+        picks = []
+        for t, ks in by_target.items():
+            n = len(ks)
+            k = min(self.PROBE_PAIRS, n // self.PROBE_EVERY)
+            if k >= self.PROBE_MIN:
+                # the k-quantile positions: 0.1, ..., 0.9 for 9 picks
+                picks.extend((t, ks[j]) for j in sorted(
+                    {min(n - 1, int((j + 1) / (k + 1) * n))
+                     for j in range(k)}))
+        if not picks:
+            return
+
+        def one(pick):
+            d, o = pending[pick[1]]
             o.cigar, dist = cpu.align_with_distance(
                 o.query_span(self.sequences), o.target_span(self.sequences))
             o.find_breaking_points(self.sequences, self.window_length,
@@ -1157,13 +1186,21 @@ class CudaPolisher(Polisher):
             self._notify_overlap_done(o)
             return dist / max(d, 1)
 
-        ratios = sorted(self._pool.map(one, idxs))
-        for i in reversed(idxs):
-            del pending[i]
-        self.align_probed = len(idxs)
-        self.align_probe_p50 = ratios[(len(ratios) - 1) // 2]
-        self.align_probe_ratio = min(max(
-            ratios[int(0.75 * (len(ratios) - 1))], 0.05), 0.67)
+        ratios = list(self._pool.map(one, picks))
+        for k in sorted((k for _, k in picks), reverse=True):
+            del pending[k]
+        self.align_probed = len(picks)
+
+        def quantiles(rs):
+            rs = sorted(rs)
+            return rs[(len(rs) - 1) // 2], min(max(
+                rs[int(0.75 * (len(rs) - 1))], 0.05), 0.67)
+
+        for t in by_target:
+            rs = [r for (pt, _), r in zip(picks, ratios) if pt == t]
+            if rs:
+                self._probe_by_target[t] = quantiles(rs)
+        self.align_probe_p50, self.align_probe_ratio = quantiles(ratios)
 
     @staticmethod
     def _wfa_need(o: Overlap, ratio: float) -> int:
@@ -1284,32 +1321,49 @@ class CudaPolisher(Polisher):
         # the WFA rungs' padded length: a cap past the kernel's rows
         # leaves the longer pairs to the band rungs
         wbd = min(bd, aw.MAX_DIM)
-        ratio = min(max(self.align_probe_p50, 0.05), 0.67)
-        ratio75 = min(max(self.align_probe_ratio, 0.05), 0.67)
         n = len(overlaps)
+        # every decision below is taken per target, with its own probe's
+        # ratios (_probe_divergence), and the chunks pool the targets:
+        # a pair's rungs depend on its target's overlaps alone
+        tgt = [o.t_id for o in overlaps]
+        # a target too small to probe prices at the fixed priors, never
+        # at the other targets' probes
+        prior = (1 / 5, 1 / 3)
+        p50, p75 = {}, {}
+        for t in set(tgt):
+            r50, r75 = self._probe_by_target.get(t, prior)
+            p50[t] = min(max(r50, 0.05), 0.67)
+            p75[t] = min(max(r75, 0.05), 0.67)
         dabs = [abs(len(queries[i]) - len(targets[i])) for i in range(n)]
         # banded cost estimate (median divergence) and the measured-center
         # admission estimate (cost only: the center absorbs the drift)
-        needc = [int(max(len(queries[i]), len(targets[i])) * ratio)
+        needc = [int(max(len(queries[i]), len(targets[i])) * p50[tgt[i]])
                  for i in range(n)]
         need = [max(dabs[i], needc[i]) for i in range(n)]
         # WFA admission at p75: a pair past its rung wastes a pass
-        wfa_need = [self._wfa_need(o, ratio75) for o in overlaps]
+        wfa_need = [self._wfa_need(o, p75[o.t_id]) for o in overlaps]
         pending = list(range(n))
         rungs = list(self.WFA_RUNGS)
-        groups = {}
+        by_target = {}
         for i in pending:
             if max(len(queries[i]), len(targets[i])) > wbd:
                 continue
             for e in rungs:
                 if wfa_need[i] <= e - 32:
-                    groups.setdefault(e, []).append(i)
+                    by_target.setdefault(tgt[i], {}).setdefault(
+                        e, []).append(i)
                     break
-        # a group under 16 pairs rides the next rung up
-        for e in rungs[:-1]:
-            if 0 < len(groups.get(e, ())) < 16:
-                nxt = rungs[rungs.index(e) + 1]
-                groups.setdefault(nxt, [])[:0] = groups.pop(e)
+        for tg in by_target.values():
+            # a target's group under 16 pairs rides the next rung up
+            for e in rungs[:-1]:
+                if 0 < len(tg.get(e, ())) < 16:
+                    nxt = rungs[rungs.index(e) + 1]
+                    tg.setdefault(nxt, [])[:0] = tg.pop(e)
+        groups = {}
+        for e in rungs:
+            idx = [i for tg in by_target.values() for i in tg.get(e, ())]
+            if idx:
+                groups[e] = idx
         use_emp = set()             # pairs on measured-center retry
         knots = {}
 
@@ -1366,11 +1420,16 @@ class CudaPolisher(Polisher):
             # admission: the Ukkonen certificate bound for proportional
             # pairs; cost only for measured-center pairs; the last rung
             # still skips pairs that provably cannot certify
-            idx = [i for i in pending
-                   if need[i] + dabs[i] <= wb - 512
-                   or (i in use_emp and needc[i] <= wb - 512)
-                   or (wb == last and 2 * dabs[i] <= wb - 512)]
-            if not idx or (len(idx) < 16 and wb != last):
+            admit = {}
+            for i in pending:
+                if need[i] + dabs[i] <= wb - 512 \
+                        or (i in use_emp and needc[i] <= wb - 512) \
+                        or (wb == last and 2 * dabs[i] <= wb - 512):
+                    admit.setdefault(tgt[i], []).append(i)
+            # a target under 16 admitted pairs waits for a wider rung
+            idx = sorted(i for ti in admit.values()
+                         if len(ti) >= 16 or wb == last for i in ti)
+            if not idx:
                 continue
 
             def accept_band(i, k, res, wb=wb):

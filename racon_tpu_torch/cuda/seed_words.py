@@ -19,7 +19,6 @@ bits.
 
 from __future__ import annotations
 
-import threading
 from typing import Tuple
 
 import numpy as np
@@ -28,11 +27,6 @@ import torch
 from racon_tpu_torch.cuda.devclock import DispatchTimer
 
 MAX_K = 15
-
-#: kernel launches made by ``seed_words`` (plain-version calls excluded)
-LAUNCHES = 0
-# guards the count: launches may come from several threads
-_LAUNCH_LOCK = threading.Lock()
 
 
 def check_inputs(codes, k: int) -> int:
@@ -53,7 +47,6 @@ def check_inputs(codes, k: int) -> int:
 
 def seed_words(codes, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """(fw, rv) int32 ``[n - k + 1]`` on the codes' device."""
-    global LAUNCHES
     nk = check_inputs(codes, k)
     if codes.device.type == "cpu":
         return seed_words_reference(codes, k)
@@ -73,8 +66,7 @@ def seed_words(codes, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     if err != 0:
         raise RuntimeError(f"seed_words kernel launch failed: "
                            f"{build.error_string('seed_words', err)} ({err})")
-    with _LAUNCH_LOCK:
-        LAUNCHES += 1
+    build.count_launch("seed_words")
     return fw, rv
 
 

@@ -293,18 +293,54 @@ class _OverlapScanParser(_ScanParserBase):
     """Chunking and the per-row fallback shared by the overlap formats:
     a parse stops after the first nonempty line that crosses the byte
     budget (blank lines are skipped uncounted, as the line parsers
-    count), and the vector passes run over bounded blocks of lines."""
+    count), and the vector passes run over bounded blocks of lines.
+
+    Staged scanning (racon_tpu_torch/io/staging.py): ``set_stage``
+    restricts which records are materialized to the given line ranges,
+    while the budget and chunk arithmetic count every line as before, so
+    chunk boundaries, ``parse``'s return value and the line numbers of
+    malformed-row diagnostics equal the full parse's; only rows outside
+    the ranges are skipped, and counted in ``stage_skipped_bytes``."""
 
     #: the matching line parser class; supplies ``record_from_line``
     line_parser = None
 
     def _post_reset(self) -> None:
         self._cursor = 0
+        self._stage_mask = None
+        self.stage_skipped_bytes = 0
+        if not hasattr(self, "_stage"):
+            #: the configured line ranges; they survive reset(): staging
+            #: is the parser's configuration, not cursor state
+            self._stage = None
+
+    def set_stage(self, ranges) -> None:
+        """Materialize records only for lines inside the ``[lo, hi)``
+        ranges (ascending, not overlapping); ``None`` restores the full
+        parse.  Line indices count the physical lines of the
+        (decompressed) buffer, the table the budget walks."""
+        self._stage = (None if ranges is None else
+                       [(int(lo), int(hi)) for lo, hi in ranges])
+        self._stage_mask = None
 
     def _select_rows(self, a: int, b: int):
-        """Line starts and ends of lines [a, b) and the nonempty rows."""
+        """Line starts and ends of lines [a, b) and the nonempty rows the
+        stage admits; skipped nonempty rows' bytes are counted."""
         s, e = self._starts[a:b], self._ends[a:b]
-        return s, e, np.flatnonzero(e > s)
+        rows = np.flatnonzero(e > s)
+        if self._stage is not None and rows.size:
+            if self._stage_mask is None:
+                m = np.zeros(self._starts.size, dtype=bool)
+                for lo, hi in self._stage:
+                    m[lo:hi] = True
+                self._stage_mask = m
+            keep = self._stage_mask[a:b][rows]
+            dropped = rows[~keep]
+            if dropped.size:
+                self.stage_skipped_bytes += int(
+                    (self._rawnext[a:b][dropped] - s[dropped]).sum())
+            rows = rows[keep]
+        return s, e, rows
 
     def parse(self, dst: List[Overlap], max_bytes: int) -> bool:
         self._ensure_scanned()

@@ -97,16 +97,30 @@ def observe_units(stage: str, units: float, actual_s: float,
     observe(stage, units * rate, actual_s, registry=registry)
 
 
+def _ewma_from_gauge(v):
+    """A gauge value from a plain snapshot (a number) or a fleet-merged
+    one (``{"per_source": .., "min": .., "max": .., "sum": ..}``) as one
+    EWMA: the mean over the sources when merged."""
+    if isinstance(v, dict):
+        per = [x for x in (v.get("per_source") or {}).values()
+               if isinstance(x, (int, float))]
+        return sum(per) / len(per) if per else None
+    return float(v) if isinstance(v, (int, float)) else None
+
+
 def summary(snapshot: dict = None) -> dict:
-    """Per-stage drift document (the run report's ``calhealth``)::
+    """Per-stage drift document (the run report's ``calhealth``, the
+    fleet view's)::
 
         {"band": [0.5, 2.0],
          "stages": {stage: {"n": .., "ewma": .., "p50": .., "p99": ..,
                             "min": .., "max": .., "drift": bool}}}
 
-    Works on the live process registry (default) or any
-    ``Registry.snapshot()``.  Stages with no observations are
-    omitted."""
+    Works on the live process registry (default), any
+    ``Registry.snapshot()``, or an ``aggregate.merge_snapshots``
+    document (merged histograms keep the single-snapshot shape; a merged
+    EWMA gauge reads as its sources' mean).  Stages with no
+    observations are omitted."""
     snap = snapshot if snapshot is not None else REGISTRY.snapshot()
     hists = snap.get("histograms") or {}
     gauges = snap.get("gauges") or {}
@@ -119,9 +133,9 @@ def summary(snapshot: dict = None) -> dict:
         h = hists.get(RATIO_PREFIX + stage)
         if not h or not h.get("count"):
             continue
-        ew = gauges.get(EWMA_PREFIX + stage)
+        ew = _ewma_from_gauge(gauges.get(EWMA_PREFIX + stage))
         # a snapshot without the gauge: the histogram mean
-        ew = float(h["sum"]) / h["count"] if ew is None else float(ew)
+        ew = float(h["sum"]) / h["count"] if ew is None else ew
         row = {"n": int(h["count"]), "ewma": round(ew, 6),
                "p50": round(hist_quantile(h, 0.50), 6),
                "p99": round(hist_quantile(h, 0.99), 6),
@@ -130,6 +144,13 @@ def summary(snapshot: dict = None) -> dict:
                "drift": not (DRIFT_BAND[0] <= ew <= DRIFT_BAND[1])}
         stages[stage] = row
     return {"band": list(DRIFT_BAND), "stages": stages}
+
+
+def stage_ewma(snapshot: dict, stage: str):
+    """The EWMA drift ratio of ``stage`` in any snapshot form, or
+    None."""
+    row = summary(snapshot).get("stages", {}).get(stage)
+    return row.get("ewma") if row else None
 
 
 def reset() -> None:

@@ -12,6 +12,8 @@ registry rendered here:
   grammar.  The per-tenant queue-wait histograms
   (``serve_queue_wait_s.<tenant>``) are exported under their base name
   with a ``tenant`` label, since ``sanitize`` is not injective;
+* :func:`prometheus_text_fleet` -- several daemons' snapshots in one
+  exposition, each sample labelled ``instance`` (``metrics --fleet``);
 * :func:`json_snapshot` -- the snapshot with p50/p90/p99 attached to
   every histogram;
 * :func:`drift_summary` and :func:`slo_summary` -- the calibration
@@ -82,29 +84,31 @@ def _fmt(v) -> str:
     return repr(f)
 
 
-def prometheus_text(snapshot: dict) -> str:
-    """Render a registry snapshot (``Registry.snapshot()``) as
-    Prometheus text exposition: one TYPE line per metric name, the
-    per-tenant series labelled ``tenant``, buckets ``le``."""
+def _render(sources) -> str:
+    """Exposition over ``[(base_labels, snapshot), ...]``: one TYPE line
+    per metric name, every sample carrying its source's base labels
+    (and ``tenant`` on the per-tenant series, ``le`` on buckets)."""
     counters: dict = {}
     gauges: dict = {}
     hists: dict = {}
-    for name in sorted(snapshot.get("counters", {})):
-        base, tl = split_tenant(name)
-        counters.setdefault(sanitize(base), []).append(
-            (tl, snapshot["counters"][name]))
-    for name in sorted(snapshot.get("gauges", {})):
-        v = snapshot["gauges"][name]
-        if isinstance(v, bool):
-            v = int(v)
-        if not isinstance(v, (int, float)):
-            continue   # non-numeric gauges have no exposition form
-        base, tl = split_tenant(name)
-        gauges.setdefault(sanitize(base), []).append((tl, v))
-    for name in sorted(snapshot.get("histograms", {})):
-        base, tl = split_tenant(name)
-        hists.setdefault(sanitize(base), []).append(
-            (tl, snapshot["histograms"][name]))
+    for base_labels, snap in sources:
+        for name in sorted(snap.get("counters", {})):
+            base, tl = split_tenant(name)
+            counters.setdefault(sanitize(base), []).append(
+                ({**base_labels, **tl}, snap["counters"][name]))
+        for name in sorted(snap.get("gauges", {})):
+            v = snap["gauges"][name]
+            if isinstance(v, bool):
+                v = int(v)
+            if not isinstance(v, (int, float)):
+                continue   # non-numeric gauges have no exposition form
+            base, tl = split_tenant(name)
+            gauges.setdefault(sanitize(base), []).append(
+                ({**base_labels, **tl}, v))
+        for name in sorted(snap.get("histograms", {})):
+            base, tl = split_tenant(name)
+            hists.setdefault(sanitize(base), []).append(
+                ({**base_labels, **tl}, snap["histograms"][name]))
     lines = []
     for mn in sorted(counters):
         lines.append(f"# TYPE {mn} counter")
@@ -134,6 +138,21 @@ def prometheus_text(snapshot: dict) -> str:
             lines.append(
                 f"{mn}_count{_label_str(labels)} {h['count']}")
     return "\n".join(lines) + "\n"
+
+
+def prometheus_text(snapshot: dict) -> str:
+    """Render a registry snapshot (``Registry.snapshot()``) as
+    Prometheus text exposition: one TYPE line per metric name, the
+    per-tenant series labelled ``tenant``, buckets ``le``."""
+    return _render([({}, snapshot)])
+
+
+def prometheus_text_fleet(snapshots: dict) -> str:
+    """Render ``{instance_id: snapshot}`` as one exposition in which
+    every sample carries ``instance="<id>"`` (``metrics --fleet
+    --prometheus``)."""
+    return _render([({"instance": iid}, snapshots[iid])
+                    for iid in sorted(snapshots)])
 
 
 def percentiles(hist: dict) -> dict:

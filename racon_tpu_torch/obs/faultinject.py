@@ -5,21 +5,26 @@ racon_tpu/obs/faultinject.py).
 ``nth`` time execution reaches it (default 1) the process SIGKILLs
 itself, the abrupt death an OOM kill or a power loss gives, with no
 interpreter teardown (no atexit, no flushes, no socket unlink).  The
-crash-recovery tests (tests/test_torch_durable.py) and chip_smoke.py's
-``serve`` phase kill the daemon at a site mid-job and hold a restart on
+crash-recovery tests (tests/test_torch_durable.py,
+tests/test_torch_fleet.py) and chip_smoke.py's ``serve`` and ``fleet``
+phases kill the daemon at a site mid-job and hold a restart on
 the same journal to the same FASTA bytes.
 
-Sites the port hits (racon_tpu_torch/serve and cuda/polisher.py):
+Sites (racon_tpu_torch/serve and cuda/polisher.py):
 
-* ``post-admit``      -- job journaled and queued, never started
-* ``mid-megabatch``   -- a POA megabatch launched, its result in flight
-* ``pre-demux``       -- a megabatch's results collected, not committed
-* ``pre-done-record`` -- job finished, its done record not journaled
-* ``journal-write``   -- inside the journal append, before the write
-
-The four ``route-*`` sites of the JAX package's fleet router are listed
-so a spec naming one parses the same in both packages; the port has no
-router yet, so nothing reaches them.
+* ``post-admit``          -- job journaled and queued, never started
+* ``mid-megabatch``       -- a POA megabatch launched, its result in
+  flight
+* ``pre-demux``           -- a megabatch's results collected, not
+  committed
+* ``pre-done-record``     -- job finished, its done record not journaled
+* ``journal-write``       -- inside the journal append, before the write
+* ``route-pre-forward``   -- the router placed a job, nothing forwarded
+* ``route-pre-reply``     -- the router holds the backend's answer, the
+  client has none
+* ``route-mid-gather``    -- every shard answered, nothing gathered
+* ``route-mid-rebalance`` -- a straggler's replacement chosen, not
+  launched
 
 Counting is per process and under a lock, so ``<site>:<nth>`` is
 deterministic under concurrent workers.  An unarmed site costs one

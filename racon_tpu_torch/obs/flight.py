@@ -112,8 +112,10 @@ class FlightRecorder:
                  trace_id: str = None) -> list:
         """Copies of the ring's events, oldest first, filtered to one
         job (its own events and the fused dispatches that carried it),
-        to an idempotence key or to a trace id; ``last`` keeps the
-        newest N."""
+        to an idempotence key (an event whose ``job_key``, ``key`` or
+        ``winner_key`` equals it or derives from it as a shard,
+        ``<key>-shard-...``, so one query sees a scattered job's whole
+        family) or to a trace id; ``last`` keeps the newest N."""
         with self._lock:
             evs = [dict(ev) for ev in self._ring]
         if job is not None:
@@ -121,7 +123,11 @@ class FlightRecorder:
             evs = [ev for ev in evs
                    if ev.get("job") == job or job in ev.get("jobs", ())]
         if job_key is not None:
-            evs = [ev for ev in evs if ev.get("job_key") == job_key]
+            shard = job_key + "-shard-"
+            evs = [ev for ev in evs if any(
+                isinstance(ev.get(f), str)
+                and (ev[f] == job_key or ev[f].startswith(shard))
+                for f in ("job_key", "key", "winner_key"))]
         if trace_id is not None:
             evs = [ev for ev in evs if ev.get("trace_id") == trace_id]
         if last and last > 0:

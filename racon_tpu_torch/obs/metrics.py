@@ -61,6 +61,7 @@ class Registry:
     * ``peak(name, v)``    gauge: keep the maximum (high-water mark)
     * ``observe(name, v)`` histogram: count/sum/min/max and the fixed
                            buckets of :data:`HIST_BUCKETS`
+    * ``zero(name)``       counter: back to 0
     * ``value(name)``      read a counter or gauge
     * ``timer(name)``      context manager adding elapsed seconds to the
                            counter ``name``
@@ -93,6 +94,12 @@ class Registry:
         total."""
         with self._lock:
             self._gauges[name] = value
+
+    def zero(self, name: str) -> None:
+        """Set the counter ``name`` back to 0, here only."""
+        with self._lock:
+            if name in self._counters:
+                self._counters[name] = 0
 
     def peak(self, name: str, value) -> None:
         with self._lock:

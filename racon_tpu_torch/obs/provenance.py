@@ -96,6 +96,30 @@ KNOWN_KNOBS = {
     "RACON_TPU_TORCH_JOURNAL_DIR": "",
     "RACON_TPU_TORCH_JOURNAL_FSYNC": "1",
     "RACON_TPU_TORCH_FAULT": "",
+    # the fleet (racon_tpu_torch/serve/router.py, scatter.py, fleet.py,
+    # io/staging.py, parallel/multihost.py): the router's probe period
+    # and timeout, its breakers, content-affinity pricing and TCP front;
+    # the scatter threshold, shard cap and straggler factor; staged
+    # parsing; the fleet scrape's period, timeout and staleness; and the
+    # target-sharded ranks.  They steer placement only (a shard's or a
+    # rank's bytes are a slice of the same stream), so cache/keying.py
+    # leaves them all out of the epoch.
+    "RACON_TPU_TORCH_ROUTE_PROBE_S": "1.0",
+    "RACON_TPU_TORCH_ROUTE_PROBE_TIMEOUT_S": "2.0",
+    "RACON_TPU_TORCH_ROUTE_BREAKER_FAILS": "3",
+    "RACON_TPU_TORCH_ROUTE_BREAKER_COOLDOWN_S": "5.0",
+    "RACON_TPU_TORCH_ROUTE_AFFINITY": "1",
+    "RACON_TPU_TORCH_ROUTE_TCP": "",
+    "RACON_TPU_TORCH_SCATTER_MIN_WALL_S": "",
+    "RACON_TPU_TORCH_SCATTER_MAX_SHARDS": "8",
+    "RACON_TPU_TORCH_SCATTER_REBALANCE": "2.5",
+    "RACON_TPU_TORCH_STAGE": "1",
+    "RACON_TPU_TORCH_FLEET_INTERVAL_S": "1.0",
+    "RACON_TPU_TORCH_FLEET_TIMEOUT_S": "5.0",
+    "RACON_TPU_TORCH_FLEET_STALE_S": "10.0",
+    "RACON_TPU_TORCH_NPROC": "1",
+    "RACON_TPU_TORCH_RANK": "0",
+    "RACON_TPU_TORCH_COORD": "",
 }
 
 _probe_cache: list = []

@@ -53,7 +53,10 @@ def polish_rounds(sequences_path: str, overlaps_path: Optional[str],
     with a path, round 1 parses it and rounds 2+ map internally.
     Intermediate rounds never drop unpolished targets (a target must
     survive to be re-polished); ``drop_unpolished`` applies to the
-    final round only.  The last polisher is returned OPEN so callers
+    final round only.  A rank or a target shard (parallel/multihost.py,
+    serve/scatter.py) masks its targets in round 1 only: round 1 emits
+    just the targets it owns, so every later round polishes all of its
+    draft.  The last polisher is returned OPEN so callers
     can read its metrics and stage walls; they own the ``close()``.
     Its ``rounds_report`` attribute holds the per-round stats list
     (the JAX package's keys, and each round's stage walls).
@@ -69,6 +72,7 @@ def polish_rounds(sequences_path: str, overlaps_path: Optional[str],
     report: List[dict] = []
     polisher = None
     polished: List = []
+    split = False
     try:
         for i in range(rounds):
             final = i == rounds - 1
@@ -81,6 +85,7 @@ def polish_rounds(sequences_path: str, overlaps_path: Optional[str],
                 cuda_poa_batches=cuda_poa_batches,
                 cuda_banded_alignment=cuda_banded_alignment,
                 cuda_aligner_batches=cuda_aligner_batches, device=device)
+            polisher._split_draft = split
             try:
                 if configure is not None:
                     configure(polisher)
@@ -102,7 +107,11 @@ def polish_rounds(sequences_path: str, overlaps_path: Optional[str],
                 "stage_walls": {k: round(v, 6) for k, v in
                                 polisher.stage_walls.items()},
             })
-            if final:
+            # a rank's or a shard's round 1 emits only the targets it
+            # owns: the later rounds' drafts are that set, and a split
+            # that owns no target has nothing left to polish
+            split = split or polisher._owned_targets is not None
+            if final or (split and not polished):
                 break
             polisher.close()
             polisher = None

@@ -8,8 +8,11 @@ them as a job spec to a running daemon, blocks until the job finishes,
 and writes the polished FASTA to stdout: the bytes the one-shot CLI
 would have written, without its start-up.  Its own flags: ``--socket``,
 ``--priority``, ``--tenant``, ``--class``, ``--trace-context``,
-``--job-key`` and ``--retry``.  ``--device`` is the daemon's, not the
-job's, and a submit carrying it is refused.
+``--job-key``, ``--retry`` and ``--shards`` (a router splits the job
+into that many target shards, or one per backend with ``auto``).
+``--device`` is the daemon's, not the job's, and a submit carrying it
+is refused.  ``--socket`` takes a unix socket path or a router's TCP
+front as ``host:port``.
 
 Exit codes: 0 on success; 1 on a failed job or a transport error; 75
 (EX_TEMPFAIL) on a ``queue_full`` or ``draining`` reject, which may be
@@ -35,9 +38,30 @@ class ServeError(RuntimeError):
     """Transport-level failure (no server, protocol violation)."""
 
 
+def is_tcp_address(addr: str) -> bool:
+    """``host:port`` addressing (the router's TCP front): no path
+    separator, a colon and an all-digit port.  Anything else, every
+    unix socket path among them, stays a unix socket."""
+    if not addr or "/" in addr or os.path.exists(addr):
+        return False
+    host, sep, port = addr.rpartition(":")
+    return bool(sep) and bool(host) and port.isdigit()
+
+
 def _connect(addr: str, timeout: float = None):
-    """Dial the daemon's unix socket; raises OSError on failure
-    (callers wrap it into :class:`ServeError`)."""
+    """Dial ``addr``, a unix socket path or a router's ``host:port``;
+    raises OSError on failure (callers wrap it into
+    :class:`ServeError`)."""
+    if is_tcp_address(addr):
+        host, _, port = addr.rpartition(":")
+        sock = socket.socket(socket.AF_INET)
+        sock.settimeout(timeout)
+        try:
+            sock.connect((host, int(port)))
+        except OSError:
+            sock.close()
+            raise
+        return sock
     sock = socket.socket(socket.AF_UNIX)
     sock.settimeout(timeout)
     try:
@@ -74,7 +98,8 @@ def request(socket_path: str, frame: dict, timeout: float = None):
 
 def submit(socket_path: str, spec: dict, priority: int = 0,
            timeout: float = None, want_trace: bool = False,
-           trace_context: str = None, job_key: str = None) -> dict:
+           trace_context: str = None, job_key: str = None,
+           shards=None) -> dict:
     """Submit one job and block until it completes (or is rejected).
     Returns the raw response frame; callers check ``resp["ok"]``.
     ``want_trace`` asks the server to attach the job's trace slice
@@ -86,7 +111,10 @@ def submit(socket_path: str, spec: dict, priority: int = 0,
     ``job_key`` (same charset) is the idempotence key: a
     duplicate submit with the same key joins the live job or is
     answered from the daemon's write-ahead journal record — the job
-    runs exactly once, across client retries AND daemon restarts."""
+    runs exactly once, across client retries AND daemon restarts.
+    ``shards`` (a router's field) asks for scatter/gather: an int forces
+    that many target shards, ``"auto"`` one per eligible backend, 0 an
+    unsharded run; a daemon ignores it."""
     frame = {"op": "submit", "job": spec, "priority": priority}
     if want_trace:
         frame["trace"] = True
@@ -94,6 +122,8 @@ def submit(socket_path: str, spec: dict, priority: int = 0,
         frame["trace_context"] = trace_context
     if job_key is not None:
         frame["job_key"] = job_key
+    if shards is not None:
+        frame["shards"] = shards
     return request(socket_path, frame, timeout=timeout)
 
 
@@ -101,7 +131,7 @@ def submit_with_retry(socket_path: str, spec: dict,
                       priority: int = 0, retries: int = 0,
                       timeout: float = None, want_trace: bool = False,
                       trace_context: str = None,
-                      job_key: str = None) -> dict:
+                      job_key: str = None, shards=None) -> dict:
     """:func:`submit`, retried with jittered exponential backoff
     (~0.5 s base, doubling, capped at 30 s; jitter 0.5x..1.5x so a
     herd of clients doesn't re-land in lockstep).
@@ -132,7 +162,7 @@ def submit_with_retry(socket_path: str, spec: dict,
             resp = submit(socket_path, spec, priority=priority,
                           timeout=timeout, want_trace=want_trace,
                           trace_context=trace_context,
-                          job_key=job_key)
+                          job_key=job_key, shards=shards)
         except ServeError as exc:
             if attempt >= retries:
                 raise
@@ -186,6 +216,13 @@ def cancel(socket_path: str, job_key: str,
     unknown/finished keys are a safe no-op."""
     return request(socket_path, {"op": "cancel", "job_key": job_key},
                    timeout=timeout)
+
+
+def route_status(socket_path: str, timeout: float = 30.0) -> dict:
+    """A router's detail document (the ``route_status`` op): each
+    backend's breaker, probe age and queue depth, and the routing
+    counters.  Only routers answer it."""
+    return request(socket_path, {"op": "route_status"}, timeout=timeout)
 
 
 def flight(socket_path: str, job=None, last: int = 0,
@@ -321,7 +358,7 @@ _SERVE_FLAGS = {"--socket": ("socket", str), "--priority": ("priority", int),
                 "--tenant": ("tenant", str),
                 "--trace-context": ("trace_context", str),
                 "--job-key": ("job_key", str), "--retry": ("retry", int),
-                "--class": ("job_class", str)}
+                "--class": ("job_class", str), "--shards": ("shards", str)}
 
 
 def _split_serve_flags(argv):
@@ -330,7 +367,7 @@ def _split_serve_flags(argv):
     ``cli.parse_args``; returns ``(flags, rest)``."""
     flags = {"socket": None, "priority": 0, "tenant": None,
              "trace_context": None, "job_key": None, "retry": 0,
-             "job_class": None}
+             "job_class": None, "shards": None}
     rest = []
     i = 0
     while i < len(argv):
@@ -382,7 +419,8 @@ def main_submit(argv) -> int:
                            job_class=flags["job_class"]),
             priority=flags["priority"], retries=max(0, flags["retry"]),
             want_trace=bool(opts["trace"]),
-            trace_context=flags["trace_context"], job_key=flags["job_key"])
+            trace_context=flags["trace_context"], job_key=flags["job_key"],
+            shards=flags["shards"])
     except ServeError as exc:
         print(f"[racon_tpu_torch::submit] error: {exc}", file=sys.stderr)
         return 1
@@ -428,6 +466,50 @@ def main_submit(argv) -> int:
     return 0
 
 
+def _print_router_status(doc: dict) -> int:
+    """A router's ``status`` / ``route_status`` document for a human:
+    each backend's breaker (CLOSED / OPEN / HALF-OPEN), probe age and
+    load, and the routing counters."""
+    tcp = f" + tcp {doc['tcp']}" if doc.get("tcp") else ""
+    print(f"router      pid {doc.get('pid')} on "
+          f"{doc.get('socket')}{tcp}")
+    state = "draining" if doc.get("draining") else "routing"
+    print(f"state       {state}, up {doc.get('uptime_s', 0):.1f}s, "
+          f"{doc.get('in_flight', 0)} in flight")
+    c = doc.get("counters") or {}
+    print(f"routing     {c.get('route_submit', 0)} submit(s), "
+          f"{c.get('route_spillover', 0)} spillover(s), "
+          f"{c.get('route_failover', 0)} failover(s), "
+          f"{c.get('route_dedup_joins', 0)} dedup join(s)")
+    sc = doc.get("scatter") or {}
+    if c.get("route_scatter_jobs") or sc.get("active"):
+        print(f"scatter     {c.get('route_scatter_jobs', 0)} "
+              f"job(s) -> {c.get('route_scatter_shards', 0)} "
+              f"shard(s), {c.get('route_cache_affinity', 0)} "
+              f"affinity pick(s)")
+    for row in sc.get("active") or []:
+        print(f"scatter     {row.get('job_key')}: "
+              f"{row.get('done')}/{row.get('shards')} shard(s) done")
+    backends = doc.get("backends") or []
+    if backends:
+        print("backend                           breaker    fails  "
+              "probe     queue  run  state")
+    for b in backends:
+        age = b.get("probe_age_s")
+        probe = "never" if age is None else f"{age:5.1f}s"
+        if b.get("stale"):
+            probe += "!"
+        qd = b.get("queue_depth")
+        run = b.get("running")
+        state = "draining" if b.get("draining") else (
+            "down" if b.get("breaker") != "CLOSED" else "up")
+        print(f"{b.get('target', '?'):<33s} {b.get('breaker'):<9s}  "
+              f"{b.get('failures', 0):>5d}  {probe:<8s}  "
+              f"{qd if qd is not None else '-':>5}  "
+              f"{run if run is not None else '-':>3}  {state}")
+    return 0
+
+
 def main_status(argv) -> int:
     try:
         flags, rest = _split_serve_flags(argv)
@@ -449,6 +531,8 @@ def main_status(argv) -> int:
         json.dump(doc, sys.stdout, indent=1)
         print()
         return 0
+    if doc.get("router"):
+        return _print_router_status(doc)
     q = doc.get("queue", {})
     state = ("draining" if doc.get("draining")
              else "paused" if q.get("paused") else "running")

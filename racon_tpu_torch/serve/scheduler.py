@@ -10,7 +10,9 @@ the reference's per-GPU batch queues (src/cuda/cudapolisher.cpp:257-336).
   predict_walls`; ``RACON_TPU_TORCH_SERVE_MAX_WALL_S`` (unset: no cap)
   rejects a job priced past it with ``job_too_large`` and the estimate.
   A spec with no overlaps and no ``rounds`` gets ``missing_overlaps``;
-  the fleet tier's ``shard`` and ``stage`` fields get ``bad_request``.
+  a malformed ``shard`` (a router's target shard) or ``stage`` (its
+  staged-parse plan) gets ``bad_request``, and a staged shard is priced
+  at its staged share of the overlaps.
 * **Backpressure** -- the queue is bounded
   (``RACON_TPU_TORCH_SERVE_QUEUE``, default 8); a submission past it is
   rejected at once with ``queue_full``, its depth, bound and a
@@ -183,7 +185,20 @@ def estimate_job(spec: dict, concurrency: int = 1,
     poa_mbps = float(os.environ.get("RACON_TPU_TORCH_SERVE_POA_MBPS",
                                     _POA_MB_PER_S))
     mb = 1024.0 * 1024.0
+    # a staged shard parses only its slice of the overlaps, so the
+    # parse and align term prices the staged share of the file
     overlap_bytes = sizes["overlaps"]
+    staged_fraction = None
+    stage = spec.get("stage")
+    if isinstance(stage, dict):
+        try:
+            sb = int(stage.get("staged_bytes", 0))
+            tb = int(stage.get("total_bytes", 0))
+        except (TypeError, ValueError):
+            sb = tb = 0
+        if tb > 0 and 0 <= sb <= tb:
+            staged_fraction = sb / tb
+            overlap_bytes = sizes["overlaps"] * staged_fraction
     # align work scales with the read+overlap volume, POA with the
     # read volume layered over the targets
     align_s = (sizes["sequences"] + overlap_bytes) / mb / align_mbps
@@ -219,6 +234,10 @@ def estimate_job(spec: dict, concurrency: int = 1,
     if map_s > 0.0:
         est["map_s"] = round(map_s, 6)
     est["input_bytes"] = sizes
+    if staged_fraction is not None:
+        est["staged_fraction"] = round(staged_fraction, 6)
+        est["input_bytes"] = dict(sizes)
+        est["input_bytes"]["overlaps_staged"] = int(overlap_bytes)
     return est
 
 
@@ -469,16 +488,34 @@ class JobScheduler:
                 "code": "bad_request",
                 "reason": "class must be one of "
                           + "/".join(JOB_CLASSES)})
-        # the fleet tier's sub-job fields (a router's target shard and
-        # staged-parse plan) come with the router, which the port does
-        # not have yet: a spec carrying one is refused, never run whole
-        for field in ("shard", "stage"):
-            if spec.get(field) is not None:
+        # a routed sub-job carries its target shard as [index, count]
+        # (tenant and priority ride the spec and the frame, so a shard
+        # inherits both); a malformed one is a bad_request here, not a
+        # failed job mid-polish
+        shard = spec.get("shard")
+        if shard is not None:
+            ok_shape = (isinstance(shard, (list, tuple))
+                        and len(shard) == 2
+                        and all(isinstance(x, int)
+                                and not isinstance(x, bool)
+                                for x in shard))
+            if not ok_shape or not 0 <= shard[0] < shard[1] \
+                    or shard[1] > 4096:
                 raise RejectError({
                     "code": "bad_request",
-                    "reason": f"spec field {field!r} belongs to the fleet "
-                              "tier (router, scatter, staged parse), "
-                              "which racon_tpu_torch does not serve yet"})
+                    "reason": "shard must be [index, count] with "
+                              "0 <= index < count <= 4096"})
+        # the router's slice index may ride a sub-job as "stage": its
+        # shape is checked here; the polisher checks its content (path,
+        # file signature, shard) and takes the full parse on a mismatch
+        stage = spec.get("stage")
+        if stage is not None:
+            from racon_tpu_torch.io import staging
+
+            stage_err = staging.validate_stage_field(stage)
+            if stage_err is not None:
+                raise RejectError({"code": "bad_request",
+                                   "reason": stage_err})
         # price against the load the job would actually share the
         # device with (approximate read outside the lock is fine --
         # admission only needs the right order of magnitude)

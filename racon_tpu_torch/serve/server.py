@@ -242,10 +242,24 @@ class PolishServer:
             "slo": export.slo_summary(snap),
             "calhealth": export.drift_summary(snap),
             "snapshot": export.json_snapshot(snap),
+            "device_memory": self._device_memory(),
         }
         if prometheus:
             doc["prometheus"] = export.prometheus_text(snap)
         return doc
+
+    def _device_memory(self):
+        """This process's caching-allocator bytes on its card (None on
+        the CPU): what several daemons sharing one card each hold."""
+        if self.device.type != "cuda":
+            return None
+        import torch
+
+        return {"reserved_bytes": torch.cuda.memory_reserved(self.device),
+                "max_reserved_bytes":
+                    torch.cuda.max_memory_reserved(self.device),
+                "max_allocated_bytes":
+                    torch.cuda.max_memory_allocated(self.device)}
 
     @staticmethod
     def _clock_anchors() -> dict:

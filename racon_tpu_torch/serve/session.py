@@ -30,6 +30,7 @@ from __future__ import annotations
 import base64
 
 from racon_tpu_torch import obs
+from racon_tpu_torch.cuda import build as cuda_build
 from racon_tpu_torch.obs import REGISTRY
 from racon_tpu_torch.obs import decision as obs_decision
 from racon_tpu_torch.obs import flight as obs_flight
@@ -56,17 +57,6 @@ def _resolve_options(spec: dict) -> dict:
         if key in spec:
             opts[key] = spec[key]
     return opts
-
-
-def kernel_launches() -> dict:
-    """Each kernel wrapper's launch counter now."""
-    from racon_tpu_torch.cuda import align_band as ab
-    from racon_tpu_torch.cuda import align_wfa as aw
-    from racon_tpu_torch.cuda import poa_full as pf
-    from racon_tpu_torch.cuda import seed_words as sw
-
-    return {"poa_full": pf.LAUNCHES, "align_wfa": aw.LAUNCHES,
-            "align_band": ab.LAUNCHES, "seed_words": sw.LAUNCHES}
 
 
 def _wire_durability(polisher, job) -> None:
@@ -125,7 +115,7 @@ def run_job(job, device=None) -> dict:
     spec = job.spec
     opts = _resolve_options(spec)
     base = {k: REGISTRY.value(k) for k in PROCESS_COUNTERS}
-    launches0 = kernel_launches()
+    launches0 = cuda_build.launch_counts()
     t0 = obs.now()
     polisher = None
     # a spec with no overlaps carries a rounds count (admission checked
@@ -133,6 +123,8 @@ def run_job(job, device=None) -> dict:
     rounds = spec.get("rounds")
     rounds = (rounds if isinstance(rounds, int)
               and not isinstance(rounds, bool) and rounds >= 1 else 1)
+    # a scattered sub-job's target shard (admission checked its shape)
+    shard = tuple(spec["shard"]) if spec.get("shard") is not None else None
     try:
         with obs.span("serve.job", cat="serve",
                       args={"job": job.id, "priority": job.priority}):
@@ -144,6 +136,14 @@ def run_job(job, device=None) -> dict:
                 # the job's device submissions are its tenant's in the
                 # process-wide executor
                 p._executor_tenant = getattr(job, "tenant", "default")
+                if shard is not None:
+                    p._target_shard = shard
+                    # the router's slice index; the polisher validates
+                    # it and builds its own or takes the full parse on
+                    # a mismatch.  Only a parsed overlaps file stages.
+                    if isinstance(spec.get("stage"), dict) \
+                            and spec.get("overlaps") is not None:
+                        p._stage_hint = spec["stage"]
                 cancel = getattr(job, "cancel_requested", None)
                 if cancel is not None:
                     p._cancel_check = cancel.is_set
@@ -201,7 +201,8 @@ def run_job(job, device=None) -> dict:
     for name in PROCESS_COUNTERS:
         m.set_local(name, REGISTRY.value(name) - base[name])
     m.set_local("job_wall_s", round(wall, 6))
-    launches = {k: v - launches0[k] for k, v in kernel_launches().items()}
+    launches = {k: v - launches0[k]
+                for k, v in cuda_build.launch_counts().items()}
     report = provenance.metrics_doc(
         run_registry=m,
         details={"device": str(getattr(polisher, "device", "cpu")),
@@ -213,6 +214,7 @@ def run_job(job, device=None) -> dict:
                  "poa_resumed_windows": getattr(polisher,
                                                 "poa_resumed_windows", 0),
                  "launches": launches,
+                 "shard": list(shard) if shard is not None else None,
                  "rounds": getattr(polisher, "rounds_report", [])},
         probe=False, device_util=getattr(polisher, "device_util", None))
     polisher.close()

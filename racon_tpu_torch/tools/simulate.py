@@ -231,6 +231,40 @@ def simulate(out_dir: str, genome_len: int = 1_000_000,
     return reads_path, paf_path, draft_path
 
 
+def concat_sets(sets, out_dir: str) -> Tuple[str, str, str]:
+    """Join ``(reads, paf, draft)`` sets, each with one draft contig
+    and four-line FASTQ reads (what :func:`simulate` writes), into one
+    job of ``len(sets)`` contigs: set i's contig is renamed ``ctg<i>``
+    and its reads get the prefix ``d<i>``, in its FASTQ and in its PAF's
+    query and target columns (the naming of the JAX package's test
+    helper, tests/test_scatter.py:_multi_target_dataset).  The smallest
+    input whose target shards own distinct non-empty slices; returns the
+    joined (reads, paf, draft) paths in ``out_dir``."""
+    os.makedirs(out_dir, exist_ok=True)
+    paths = tuple(os.path.join(out_dir, n) for n in
+                  ("reads.fastq", "reads2draft.paf", "draft.fasta"))
+    with open(paths[0], "wb") as rf, open(paths[1], "wb") as pf, \
+            open(paths[2], "wb") as df:
+        for i, (reads, paf, draft) in enumerate(sets):
+            tag, ctg = b"d%d" % i, b"ctg%d" % i
+            with open(reads, "rb") as fh:
+                lines = fh.read().splitlines(keepends=True)
+            for j in range(0, len(lines), 4):
+                rf.write(b"@" + tag + lines[j][1:] + b"".join(
+                    lines[j + 1:j + 4]))
+            with open(paf, "rb") as fh:
+                for line in fh:
+                    f = line.split(b"\t")
+                    f[0], f[5] = tag + f[0], ctg
+                    pf.write(b"\t".join(f))
+            with open(draft, "rb") as fh:
+                lines = fh.read().splitlines(keepends=True)
+            if sum(1 for l in lines if l.startswith(b">")) != 1:
+                raise ValueError(f"{draft}: one contig expected")
+            df.write(b">" + ctg + b"\n" + b"".join(lines[1:]))
+    return paths
+
+
 def long_pair(out_dir: str, seed: int = 5) -> Tuple[str, str, str]:
     """A set for the align length cap: a 21,000-base draft, one read of
     20,000 bases of it (past the WFA kernel's 16,384 rows) and 12 reads

@@ -174,6 +174,10 @@ def _write_set(path, rng):
 def test_ladder_wfa_reject_band_and_measured_retry(tmp_path, monkeypatch):
     monkeypatch.setattr(CudaPolisher, "WFA_RUNGS", (256, 512))
     monkeypatch.setattr(CudaPolisher, "BAND_RUNGS", (1024, 2048))
+    # the JAX package's probe of a whole job (9 of its 26 pairs): the
+    # port's budget would price a target this small at the priors
+    monkeypatch.setattr(CudaPolisher, "PROBE_EVERY", 1)
+    monkeypatch.setattr(CudaPolisher, "PROBE_MIN", 4)
     seen = []
     orig = Overlap.find_breaking_points_from_cigar
     orig_slab = overlap_mod._decode_bp_slab

@@ -29,6 +29,7 @@ from racon_tpu.tools import simulate
 from racon_tpu.tpu import seedmatch
 from racon_tpu_torch import cache, cli
 from racon_tpu_torch.core.polisher import PolisherType
+from racon_tpu_torch.cuda import build
 from racon_tpu_torch.cuda import seed_words as sw
 from racon_tpu_torch.io.parsers import create_sequence_parser
 from racon_tpu_torch.ops import cpu
@@ -167,10 +168,10 @@ def test_seed_words_rejects_what_the_kernel_does_not_take(bad):
         codes = codes.view(8, 8)
     else:
         codes = torch.zeros(64, dtype=torch.uint8, device="meta")
-    launches = sw.LAUNCHES
+    launches = build.launch_counts()["seed_words"]
     with pytest.raises(ValueError):
         sw.seed_words(codes, k)
-    assert sw.LAUNCHES == launches
+    assert build.launch_counts()["seed_words"] == launches
 
 
 # ---------------------------------------------------------------------------
@@ -615,10 +616,10 @@ def test_seed_words_kernel_matches_plain_on_card(k):
     codes = jax_mini.encode(_random_seq(1_000_003, k, 0.01))
     dev = torch.from_numpy(codes).cuda()
     for t in (dev, dev[3:], dev[:k], dev[:2_049 + k]):
-        launches = sw.LAUNCHES
+        launches = build.launch_counts()["seed_words"]
         fw, rv = sw.seed_words(t, k)
         torch.cuda.synchronize()
-        assert sw.LAUNCHES == launches + 1
+        assert build.launch_counts()["seed_words"] == launches + 1
         pf, pr = sw.seed_words_reference(t, k)
         assert torch.equal(fw, pf) and torch.equal(rv, pr)
     want = jax_mini.kmer_words(codes, k)

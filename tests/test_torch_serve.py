@@ -13,8 +13,8 @@ reads, seed 21), with the split rates pinned:
   builds; two concurrent jobs of two tenants equal their solo bytes;
 * ``queue_full`` under ``pause``, then a SIGTERM drain; a bad frame and
   a failing job are contained; an idle daemon shuts itself down;
-* ``missing_overlaps`` and the fleet fields' ``bad_request`` rejects;
-  a daemon asked for the card on a machine without one exits 1.
+* ``missing_overlaps`` and malformed fleet fields' ``bad_request``
+  rejects; a daemon asked for the card on a machine without one exits 1.
 """
 
 import base64
@@ -349,8 +349,10 @@ def test_admission_rejects(data, case, code):
     if case == "no_overlaps":
         spec["overlaps"] = None
     elif case == "shard":
-        spec["shard"] = [0, 2]
+        # index past count: malformed (a well-formed shard is served)
+        spec["shard"] = [2, 2]
     elif case == "stage":
+        # no schema version: malformed
         spec["stage"] = {"ranges": [[0, 10]], "shard": [0, 2]}
     elif case == "rounds_zero":
         spec["rounds"] = 0
@@ -368,8 +370,11 @@ def test_admission_rejects(data, case, code):
         assert err["code"] == code
         if code == "missing_overlaps":
             assert "--rounds" in err["hint"]
-        if case in ("shard", "stage"):
-            assert "fleet tier" in err["reason"]
+        if case == "shard":
+            assert err["reason"] == ("shard must be [index, count] with "
+                                     "0 <= index < count <= 4096")
+        if case == "stage":
+            assert err["reason"] == "stage.v must be 1"
         # a spec with no overlaps but a rounds count is admitted
         if case == "no_overlaps":
             spec["rounds"] = 1
