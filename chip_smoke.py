@@ -100,16 +100,21 @@ Needs one CUDA card.  Phases, one JSON line each:
                 walls, speculative windows used and wasted, the
                 ledger's ready high-water, the pipeline overlap, the
                 stored rates and the distance (<= draft / 10); every
-                kernel launched;
+                kernel launched; the third run polishes the first 1 Mb
+                (the cut pipeline_bytes polishes at the same rates),
+                its distance against that cut's truth;
    cache        the result cache on the staged polish of the whole
                 set: cache off, then on and cold (the wall difference is
                 the host cost of keying; ``cache_host_s`` the keying,
-                lookups and fills), a warm repeat in the same process, a
-                cold fill with RACON_TPU_TORCH_CACHE_PERSIST=<work>/results
-                and, after ``cache.reset()``, a restart that reads the
-                segments: every run's wall, launches, cache counters,
-                bytes and disk hits; all five byte-identical at the
-                staged distance, the warm and restart runs hit;
+                lookups and fills) and a warm repeat in the same
+                process: every run's wall, launches, cache counters and
+                bytes; all three byte-identical at the staged distance,
+                the warm run hits; then (after fusion, on its first 1 Mb
+                cut, a ``cache`` line with ``part: persist``) a cold fill
+                with RACON_TPU_TORCH_CACHE_PERSIST=<work>/results and,
+                after ``cache.reset()``, a restart that reads the
+                segments: both byte-identical to fusion's solo run of
+                that cut (staged, cache off), the restart hits the disk;
    fusion       the device executor on the card: two 1 Mb cuts of the
                 set (the first and the second Mb), staged, cache off,
                 each alone, then both in threads as two registered
@@ -124,11 +129,12 @@ Needs one CUDA card.  Phases, one JSON line each:
                 bytes, and only b's collect raises;
    serve        the port's serve daemon (``serve --jobs 2``) in a
                 subprocess on the card, one ``serve`` line per part:
-                ``cold_warm``, the whole set submitted twice, staged,
-                cache off, at the polish's megabatch size
-                (RACON_TPU_TORCH_POA_MEGABATCH): both jobs' bytes equal
-                phase 6's, job 2 reports 0 kernel builds and 0 loads,
-                each job's wall and launches beside the one-shot's;
+                ``cold_warm``, the fusion phase's first 1 Mb cut
+                submitted twice, staged, cache off, at the polish's
+                megabatch size (RACON_TPU_TORCH_POA_MEGABATCH): both
+                jobs' bytes equal the fusion phase's solo run of the
+                cut, job 2 reports 0 kernel builds and 0 loads, each
+                job's wall and launches beside the one-shot's;
                 ``tenants``, the fusion phase's two 1 Mb cuts alone, then
                 submitted together as two tenants: each one's bytes
                 equal its solo job's, with the fused dispatches, the
@@ -137,10 +143,11 @@ Needs one CUDA card.  Phases, one JSON line each:
                 pinned, whose bytes equal a one-shot run of the same
                 pins; ``sigkill``, a journaled daemon armed with
                 RACON_TPU_TORCH_FAULT=mid-megabatch:2 dies by SIGKILL on
-                the whole set, a restart on the same socket and journal
-                answers the keyed resubmit with phase 6's bytes,
-                recovered_jobs 1 and poa_resumed_windows > 0.  A failed
-                job fails the phase;
+                the first cut (megabatches of SERVE_KILL_MEGABATCH
+                windows), a restart on the same socket and journal
+                answers the keyed resubmit with the cut's staged
+                cache-off bytes, recovered_jobs 1 and
+                poa_resumed_windows > 0.  A failed job fails the phase;
    fleet        the fleet: the whole set cut into four contiguous draft
                 regions of ~1.2 Mb with their reads, joined into one
                 four-contig job (tools/simulate.py:concat_sets); two
@@ -154,16 +161,45 @@ Needs one CUDA card.  Phases, one JSON line each:
                 launches); ``scattered``, the job as two staged target
                 shards (bytes equal the routed job's, each shard's
                 backend, wall and skipped parse bytes, the gather's wall
-                against the routed one); ``failover``, the same through
+                against the routed one); ``failover``, the first two
+                contigs as one job (their own concat_sets job) through
                 the armed backend and a survivor (the armed one dies
                 after its first megabatch, route_failover >= 1, the
                 survivor's journal holds the dead shard under its key,
-                the bytes equal); ``ranks``, the one-shot CLI as two
+                the bytes equal the routed job's first two records);
+                ``ranks``, the one-shot CLI on that two-contig job as two
                 processes at once with RACON_TPU_TORCH_NPROC=2 (rank 0
-                then rank 1 equal the routed bytes); ``fleet_metrics``,
+                then rank 1 equal the same records); ``fleet_metrics``,
                 ``metrics --fleet A,B --json``: the merged kernel launch
                 counters equal the two daemons' summed, every merged
                 histogram's p50/p90/p99 equal ``merge_snapshots``'s;
+                ``wrapper_split``, the port's wrapper
+                (racon_tpu_torch/tools/wrapper.py) in a subprocess under
+                the backends' staged environment, ``--split`` at the
+                larger contig pair's bytes (two chunks of two contigs),
+                ``-c 1 --cudaaligner-batches 1 -t <threads>``: one
+                one-shot CLI process per chunk, its bytes equal the
+                routed job's, each chunk's device poa and align seconds
+                from its stderr > 0, no read with overlaps on two
+                contigs, the wall; ``wrapper_served``, the wrapper with
+                ``--server <router>`` and the same ``--split``: the
+                router scatters it (shards=auto, two winners on its
+                flight), the bytes equal, then the same invocation
+                again, answered by the backends' journals (0 jobs run, 2
+                dedup hits) with the same bytes; ``inspect_fleet``,
+                ``inspect --fleet <failover router> --job-key
+                fleet-failover --json --trace-out``: a complete lineage
+                (the root, both shard keys, the failover edge of shard
+                0, both gathers), each daemon's clock offset and
+                confidence, the merged trace's flow events > 0, and the
+                text timeline's lane per daemon (3); ``top_fleet``,
+                ``top --fleet <router> --once --json``: the router's row
+                with both backends under it, and merged counters equal
+                to ``metrics --fleet <router>,A,B --json`` taken next;
+                ``explain``, ``explain --socket <backend> --job <the
+                routed job>`` (JSON and text) and ``explain
+                --metrics-json`` on a wrapper chunk's run report: each
+                waterfall's stage walls within 1% of its report's;
                 ``fleet_card``, each backend's max_memory_reserved, the
                 card's compute processes as nvidia-smi lists them, and
                 the processes with a /dev/nvidia<N> node open, sampled
@@ -207,7 +243,8 @@ band_card (wfa_card), then exits 0 without the result line (a few
 minutes: a trial of one align kernel); ``--only default`` runs phases
 1-3, polish_default and pipeline_bytes the same way, ``--only traced``
 phases 1-3, the staged polish, traced and long_cap, ``--only map``
-phases 1-3 and map_rounds, ``--only cache`` phases 1-3, cache and
+phases 1-3 and map_rounds, ``--only cache`` phases 1-3, cache, its
+persistent part (against the cut's own cache-off run) and
 ``cache_default`` (the default path with the cache off, on, on, off,
 twice; the same bytes), ``--only fusion`` phases 1-3 and fusion,
 ``--only serve`` phases 1-3, the staged polish and serve, ``--only
@@ -1477,25 +1514,13 @@ CACHE_COUNTERS = ("cache_hit", "cache_miss", "cache_fill", "cache_evict",
                   "cache_host_s")
 
 
-def cache_phase(cli, cpu, work, argv, truth) -> tuple:
-    """The result cache on the staged polish of the whole set (see the
-    module docstring): off, cold, warm, a persistent fill and a
-    restart, each with its wall, launches, cache counters, bytes held
-    and disk hits; all byte-identical, at the staged distance; the warm
-    and restart runs must hit.  Returns the cold run, the main path's
-    counted staged polish: (polisher, wall s, launches, FASTA path,
-    distance to the truth)."""
+def cache_runs(cli, work, argv, plan) -> tuple:
+    """The staged polish under each ``(tag, env, cold)`` of ``plan``;
+    returns ({tag: run line}, {tag: FASTA bytes}, {tag: (polisher, wall
+    s, launches)})."""
     from racon_tpu_torch import cache
     from racon_tpu_torch.obs import REGISTRY
 
-    results = os.path.join(work, "results")
-    shutil.rmtree(results, ignore_errors=True)
-    plan = (("off", {"RACON_TPU_TORCH_CACHE": "0"}, True),
-            ("cold", {}, True),
-            ("warm", {}, False),
-            ("persist_fill", {"RACON_TPU_TORCH_CACHE_PERSIST": results},
-             True),
-            ("restart", {"RACON_TPU_TORCH_CACHE_PERSIST": results}, True))
     runs, outs, pols = {}, {}, {}
     for tag, env, cold in plan:
         out_path = os.path.join(work, f"cache_{tag}.fasta")
@@ -1518,21 +1543,61 @@ def cache_phase(cli, cpu, work, argv, truth) -> tuple:
             "host": {k: round(v, 3) for k, v in
                      pol.metrics.snapshot()["counters"].items()
                      if k.startswith("host.")}}
+    return runs, outs, pols
+
+
+def cache_phase(cli, cpu, work, argv, truth) -> tuple:
+    """The result cache on the staged polish of the whole set (see the
+    module docstring): off, cold and warm, each with its wall, launches,
+    cache counters and bytes held; all byte-identical, at the staged
+    distance; the warm run must hit.  Returns the cold run, the main
+    path's counted staged polish: (polisher, wall s, launches, FASTA
+    path, distance to the truth)."""
+    plan = (("off", {"RACON_TPU_TORCH_CACHE": "0"}, True),
+            ("cold", {}, True),
+            ("warm", {}, False))
+    runs, outs, pols = cache_runs(cli, work, argv, plan)
     same = all(o == outs["off"] for o in outs.values())
     d_pol = chunked_distance(read_fasta(os.path.join(
         work, "cache_off.fasta")), truth, cpu)
     emit("cache", argv=argv[:-3], identical=same, polished_distance=d_pol,
          keying_wall_s=round(runs["cold"]["wall_s"]
-                             - runs["off"]["wall_s"], 3),
+                             - runs["off"]["wall_s"], 3), runs=runs)
+    if not same:
+        raise RuntimeError("cache: off, cold and warm gave different FASTA")
+    if runs["warm"]["cache_hit"] <= 0:
+        raise RuntimeError(f"cache: warm hits {runs['warm']['cache_hit']}")
+    return (*pols["cold"], os.path.join(work, "cache_cold.fasta"), d_pol)
+
+
+def cache_persist(cli, work, cut, threads, off_bytes=None) -> None:
+    """The persistent tier on the first Mb of the set (``cut``, the
+    fusion phase's cut a), staged: a cold fill with
+    RACON_TPU_TORCH_CACHE_PERSIST=<work>/results and, after
+    ``cache.reset()``, a restart that reads the segments; both
+    byte-identical to the cut's staged cache-off bytes (``off_bytes``,
+    the fusion phase's solo run of cut a, or a run here when None), and
+    the restart must hit the disk."""
+    argv = ["-t", str(threads), "-m", "5", "-x", "-4", "-g", "-8", "-c",
+            "1", "--cudaaligner-batches", "1", *cut]
+    results = os.path.join(work, "results")
+    shutil.rmtree(results, ignore_errors=True)
+    plan = [("persist_fill", {"RACON_TPU_TORCH_CACHE_PERSIST": results},
+             True),
+            ("restart", {"RACON_TPU_TORCH_CACHE_PERSIST": results}, True)]
+    if off_bytes is None:
+        plan.insert(0, ("cut_off", {"RACON_TPU_TORCH_CACHE": "0"}, True))
+    runs, outs, _ = cache_runs(cli, work, argv, plan)
+    off_bytes = outs.pop("cut_off", off_bytes)
+    same = all(o == off_bytes for o in outs.values())
+    emit("cache", part="persist", cut_bp=FUSE_CUT_BP, identical=same,
          segments=sorted(os.listdir(results)), runs=runs)
     if not same:
-        raise RuntimeError("cache: off, cold, warm, persistent fill and "
-                           "restart gave different FASTA")
-    if runs["warm"]["cache_hit"] <= 0 or runs["restart"]["disk_hits"] <= 0:
-        raise RuntimeError(f"cache: warm hits {runs['warm']['cache_hit']}, "
-                           f"restart disk hits "
+        raise RuntimeError("cache: the persistent fill and the restart "
+                           "differ from the cut's cache-off bytes")
+    if runs["restart"]["disk_hits"] <= 0:
+        raise RuntimeError(f"cache: restart disk hits "
                            f"{runs['restart']['disk_hits']}")
-    return (*pols["cold"], os.path.join(work, "cache_cold.fasta"), d_pol)
 
 
 #: off-on-on-off blocks of cache_default
@@ -1585,10 +1650,11 @@ FUSE_CUT_BP = 1_000_000
 FUSE_WAIT_MS = 200
 
 
-def fusion_phase(work, data, threads) -> None:
+def fusion_phase(work, data, threads) -> tuple:
     """The device executor on the card (see the module docstring): two
     1 Mb cuts alone, then fused as two tenants, then a poisoned unit
-    beside tenant a's first WFA chunk."""
+    beside tenant a's first WFA chunk.  Returns cut a's paths, its
+    solo (staged, cache off) FASTA bytes and wall s."""
     import threading
 
     from racon_tpu_torch.core.polisher import PolisherType, create_polisher
@@ -1599,9 +1665,7 @@ def fusion_phase(work, data, threads) -> None:
     from racon_tpu_torch.obs.devutil import DEVICE_UTIL
     from racon_tpu_torch.obs.flight import FLIGHT
 
-    cuts = {name: cut_region(data, os.path.join(work, f"fuse_{name}"),
-                             FUSE_CUT_BP, start=k * FUSE_CUT_BP)
-            for k, name in enumerate("ab")}
+    cuts = fuse_cuts(work, data)
 
     def polish(name, tenant=None):
         pol = create_polisher(*cuts[name], PolisherType.kC, 500, 10.0, 0.3,
@@ -1752,11 +1816,14 @@ def fusion_phase(work, data, threads) -> None:
     if not (poison["a_identical"] and raised and retries == ["a", "b"]
             and poison["fused_cross_tenant"] == 1):
         raise RuntimeError(f"fusion: poisoned unit {poison}")
+    return cuts["a"], solo["a"]["bytes"], solo["a"]["wall_s"]
 
 
 #: the serve daemon's start-up limit, and a served job's answer limit
 SERVE_START_S = 300
 SERVE_JOB_S = 900
+#: the SIGKILL part's POA megabatch: ~4 of the first Mb's ~2,000 windows
+SERVE_KILL_MEGABATCH = 512
 
 
 def daemon_socket(work, name) -> str:
@@ -1982,11 +2049,14 @@ def serve_default(cli, work, data, base, threads) -> None:
                            "from its one-shot twin's")
 
 
-def serve_phase(cli, work, data, paths, polish_bytes, polish_wall,
-                polish_launches, batch, threads) -> None:
+def serve_phase(cli, work, data, batch, threads, cut=None, cut_bytes=None,
+                cut_wall=None) -> None:
     """The serve daemon on the card (module docstring): cold and warm
     jobs, two concurrent tenants, a default-path job and one SIGKILL
-    resume."""
+    resume, at the main path's POA megabatch ``batch``.  The cold, warm
+    and SIGKILL jobs polish ``cut`` (fusion's first 1 Mb), whose staged
+    cache-off bytes are ``cut_bytes`` in a one-shot run of ``cut_wall``
+    s; all three are made here when None."""
     import signal
     import threading
 
@@ -2003,22 +2073,31 @@ def serve_phase(cli, work, data, paths, polish_bytes, polish_wall,
     # staged, all on the card, cache off, the main path's megabatches
     staged = {**base, **STAGED_ENV, "RACON_TPU_TORCH_CACHE": "0",
               "RACON_TPU_TORCH_POA_MEGABATCH": str(batch)}
+    if cut is None:
+        cut = fuse_cuts(work, data)["a"]
+    if cut_bytes is None:
+        cut_path = os.path.join(work, "serve_cut.fasta")
+        with env_set(**STAGED_ENV, RACON_TPU_TORCH_CACHE="0"):
+            _, cut_wall, _ = counted_polish(
+                cli, ["-t", str(threads), "-m", "5", "-x", "-4", "-g", "-8",
+                      "-c", "1", "--cudaaligner-batches", "1", *cut],
+                cut_path)
+        cut_bytes = read_bytes(cut_path)
     live = []
     try:
-        # ---- a: cold and warm jobs of the whole set; c: two tenants
+        # ---- a: a cold and a warm job of the first Mb; c: two tenants
         proc, sock, log = start_daemon(work, "serve_a", staged)
         live.append((proc, sock))
         jobs = {}
         for tag in ("cold", "warm"):
-            out, resp, wall = served(sock, serve_spec(paths, threads), tag)
+            out, resp, wall = served(sock, serve_spec(cut, threads), tag)
             jobs[tag] = {**job_line(resp, wall),
-                         "identical": out == polish_bytes}
-        emit("serve", part="cold_warm", jobs=jobs,
-             one_shot_wall_s=round(polish_wall, 3),
-             one_shot_launches=polish_launches, megabatch=batch)
+                         "identical": out == cut_bytes}
+        emit("serve", part="cold_warm", jobs=jobs, cut_bp=FUSE_CUT_BP,
+             one_shot_wall_s=round(cut_wall, 3), megabatch=batch)
         if not all(j["identical"] for j in jobs.values()):
             raise RuntimeError("serve: a served job's bytes differ from "
-                               "the polish phase's")
+                               "the one-shot polish's")
         if jobs["warm"]["builds"] != 0 or jobs["warm"]["loads"] != 0:
             raise RuntimeError(f"serve: warm job {jobs['warm']}")
         for tag, j in jobs.items():
@@ -2037,15 +2116,19 @@ def serve_phase(cli, work, data, paths, polish_bytes, polish_wall,
         for old in (kill_sock, serve_journal.journal_path(kill_sock)):
             if os.path.exists(old):
                 os.remove(old)
+        # the first Mb in megabatches of SERVE_KILL_MEGABATCH windows:
+        # the kill comes with some of them committed
+        kill_env = {**staged, "RACON_TPU_TORCH_POA_MEGABATCH":
+                    str(SERVE_KILL_MEGABATCH)}
         proc, sock, log = start_daemon(
-            work, "serve_kill", {**staged, "RACON_TPU_TORCH_FAULT":
+            work, "serve_kill", {**kill_env, "RACON_TPU_TORCH_FAULT":
                                  "mid-megabatch:2"}, sock=kill_sock)
         live.append((proc, sock))
         key, held = "chip-smoke-kill", {}
 
         def doomed():
             try:
-                held["resp"] = client.submit(sock, serve_spec(paths, threads),
+                held["resp"] = client.submit(sock, serve_spec(cut, threads),
                                              job_key=key,
                                              timeout=SERVE_JOB_S)
             except client.ServeError as exc:
@@ -2061,11 +2144,11 @@ def serve_phase(cli, work, data, paths, polish_bytes, polish_wall,
         if rc != -signal.SIGKILL or "resp" in held:
             raise RuntimeError(f"serve: the armed daemon exited {rc}, "
                                f"answered {held}: {tail(log)}")
-        proc, sock, log = start_daemon(work, "serve_kill", staged,
+        proc, sock, log = start_daemon(work, "serve_kill", kill_env,
                                        sock=kill_sock)
         live.append((proc, sock))
         t0 = time.perf_counter()
-        resp = client.submit_with_retry(sock, serve_spec(paths, threads),
+        resp = client.submit_with_retry(sock, serve_spec(cut, threads),
                                         retries=4, job_key=key,
                                         timeout=SERVE_JOB_S)
         wall = time.perf_counter() - t0
@@ -2073,10 +2156,11 @@ def serve_phase(cli, work, data, paths, polish_bytes, polish_wall,
             raise RuntimeError(f"serve resume: {resp.get('error')}")
         import base64
 
-        same = base64.b64decode(resp["fasta_b64"]) == polish_bytes
+        same = base64.b64decode(resp["fasta_b64"]) == cut_bytes
         health = client.health(sock)
         job = job_line(resp, wall)
         emit("serve", part="sigkill", site="mid-megabatch:2",
+             cut_bp=FUSE_CUT_BP, megabatch=SERVE_KILL_MEGABATCH,
              killed_after_s=round(killed_after, 3), identical=same,
              recovered_jobs=health["recovered_jobs"],
              journal=health["journal"], job=job)
@@ -2098,6 +2182,8 @@ def serve_phase(cli, work, data, paths, polish_bytes, polish_wall,
 
 #: contigs of the fleet phase's job: contiguous cuts of the whole set
 FLEET_CONTIGS = 4
+#: the contigs of the failover part's job: the first two of the four
+FAILOVER_CONTIGS = 2
 #: every fleet process's POA megabatch: part c kills a backend after its
 #: first one, and a pinned size makes each shard's megabatches alike
 FLEET_MEGABATCH = 2048
@@ -2110,7 +2196,8 @@ FLEET_ROUTE_ENV = {"RACON_TPU_TORCH_ROUTE_PROBE_S": "0.5",
 def fleet_data(work, data, truth, cpu) -> tuple:
     """The whole set cut into FLEET_CONTIGS contiguous draft regions with
     their reads, joined into one job (``tools/simulate.py:concat_sets``);
-    returns (paths, the truth segment of each contig, the draft's summed
+    returns (paths, the paths of the job of the first FAILOVER_CONTIGS
+    regions, the truth segment of each contig, the draft's summed
     distance to them)."""
     from racon_tpu_torch.tools import simulate
 
@@ -2126,8 +2213,70 @@ def fleet_data(work, data, truth, cpu) -> tuple:
     segs = [truth[ends[i]:ends[i + 1]] for i in range(FLEET_CONTIGS)]
     d_draft = sum(chunked_distance(draft[bounds[i]:bounds[i + 1]], segs[i],
                                    cpu) for i in range(FLEET_CONTIGS))
-    return simulate.concat_sets(cuts, os.path.join(work, "fleet")), segs, \
+    return simulate.concat_sets(cuts, os.path.join(work, "fleet")), \
+        simulate.concat_sets(cuts[:FAILOVER_CONTIGS],
+                             os.path.join(work, "fleet_failover")), segs, \
         d_draft
+
+
+def fasta_head(fa: bytes, n: int) -> bytes:
+    """The first ``n`` records of a FASTA byte string, as they were."""
+    return b"".join(b">" + rec for rec in fa.split(b">")[1:n + 1])
+
+
+def reads_on_two_contigs(paf: str) -> int:
+    """The reads with PAF records on more than one target: where a split
+    run's per-chunk overlap filter could keep another overlap than the
+    whole run's."""
+    targets = {}
+    with open(paf, "rb") as fh:
+        for line in fh:
+            f = line.split(b"\t", 6)
+            targets.setdefault(f[0], set()).add(f[5])
+    return sum(1 for t in targets.values() if len(t) > 1)
+
+
+def waterfall_sum(text: str) -> float:
+    """The summed stage walls of an ``explain`` waterfall as rendered
+    (``serve/explain.py:_fmt_s``); the "(other)" row has no bar."""
+    unit = {"ms": 1e-3, "s": 1.0, "m": 60.0, "h": 3600.0}
+    return sum(float(v) * unit[u] for v, u in re.findall(
+        r"(?m)^  \S+\s+([0-9.]+)(ms|s|m|h)\s+#+", text))
+
+
+def read_side(argv) -> tuple:
+    """``python -m racon_tpu_torch.cli <argv>`` in this process, with no
+    interpreter start (the read side's subcommands open no CUDA
+    context): (exit code, standard output)."""
+    import io
+
+    from racon_tpu_torch import cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        try:
+            cli.main(list(argv))
+            code = 0
+        except SystemExit as exc:
+            code = exc.code if isinstance(exc.code, int) else \
+                (0 if exc.code is None else 1)
+    return code, buf.getvalue()
+
+
+def run_wrapper(work, argv, env, log):
+    """The port's wrapper (``racon_tpu_torch.tools.wrapper``) from
+    ``work`` (its work directory goes there); (completed process, wall
+    s), its stderr also to ``<work>/<log>.log``."""
+    env = {**env, "PYTHONPATH": os.pathsep.join(
+        p for p in (ROOT, env.get("PYTHONPATH")) if p)}
+    t = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m",
+                          "racon_tpu_torch.tools.wrapper", *argv], cwd=work,
+                         env=env, capture_output=True, timeout=SERVE_JOB_S)
+    wall = time.perf_counter() - t
+    with open(os.path.join(work, log + ".log"), "wb") as fh:
+        fh.write(out.stderr)
+    return out, wall
 
 
 def fasta_records(fa: bytes) -> list:
@@ -2176,7 +2325,8 @@ def card_holders(pids) -> set:
 def fleet_phase(cpu, work, data, truth, threads) -> None:
     """The fleet on the card (module docstring): two backends and a
     router, a routed and a scattered job, a failover, two ranks, the
-    fleet scrape and the card's processes."""
+    fleet scrape, the wrapper split and served, the read side (inspect,
+    top, explain) and the card's processes."""
     import base64
     import hashlib
     import signal
@@ -2188,18 +2338,12 @@ def fleet_phase(cpu, work, data, truth, threads) -> None:
 
     torch.cuda.empty_cache()
     t_phase = time.perf_counter()
-    t0 = time.perf_counter()
-    paths, segs, d_draft = fleet_data(work, data, truth, cpu)
     base = {k: v for k, v in os.environ.items()
             if not k.startswith("RACON_TPU_TORCH_") or k in (
                 "RACON_TPU_TORCH_CACHE_DIR",)}
     # staged, all on the card, cache off, pinned megabatches
     staged = {**base, **STAGED_ENV, "RACON_TPU_TORCH_CACHE": "0",
               "RACON_TPU_TORCH_POA_MEGABATCH": str(FLEET_MEGABATCH)}
-    emit("fleet", part="data", contigs=FLEET_CONTIGS,
-         draft_bp=[len(fasta_records(read_bytes(paths[2]))[i][1])
-                   for i in range(FLEET_CONTIGS)],
-         draft_distance=d_draft, seconds=round(time.perf_counter() - t0, 3))
     live, apps_seen, holders = [], {}, set()
 
     def sample_apps():
@@ -2214,12 +2358,12 @@ def fleet_phase(cpu, work, data, truth, threads) -> None:
         return sum(chunked_distance(seq, segs[i], cpu)
                    for i, (_, seq) in enumerate(recs))
 
-    def job(sock, key, **kw):
+    def job(sock, key, job_paths=None, **kw):
         """One job's (FASTA, response, client wall); the FASTA also goes
         to ``<work>/<key>.fasta`` for a post-mortem."""
         t = time.perf_counter()
-        resp = client.submit(sock, serve_spec(paths, threads), job_key=key,
-                             timeout=SERVE_JOB_S, **kw)
+        resp = client.submit(sock, serve_spec(job_paths or paths, threads),
+                             job_key=key, timeout=SERVE_JOB_S, **kw)
         wall = time.perf_counter() - t
         if not resp.get("ok"):
             raise RuntimeError(f"fleet {key}: {resp.get('error')}")
@@ -2240,23 +2384,34 @@ def fleet_phase(cpu, work, data, truth, threads) -> None:
                                 ("k", {**staged, "RACON_TPU_TORCH_FAULT":
                                        "mid-megabatch:1"}))]
         live.extend((p[0], p[1]) for p in procs)
+        # the data is cut while the daemons start
+        t0 = time.perf_counter()
+        paths, paths_fo, segs, d_draft = fleet_data(work, data, truth, cpu)
+        emit("fleet", part="data", contigs=FLEET_CONTIGS,
+             draft_bp=[len(q) for _, q in fasta_records(
+                 read_bytes(paths[2]))],
+             failover_contigs=FAILOVER_CONTIGS, draft_distance=d_draft,
+             seconds=round(time.perf_counter() - t0, 3))
         (pa, sa, _), (pb, sb, _), (pk, sk, _) = [
             await_daemon(*p, f"fleet_{n}") for p, n in zip(procs, "abk")]
         route_env = {**base, **FLEET_ROUTE_ENV}
+        # the two routers, started together
         rsock = daemon_socket(work, "fleet_r")
-        pr = await_daemon(*spawn(work, "fleet_r", route_env, [
-            "route", "--socket", rsock, "--backends", f"{sa},{sb}"], rsock),
-            "fleet_r")[0]
-        live.append((pr, rsock))
         ksock = daemon_socket(work, "fleet_rk")
-        prk = await_daemon(*spawn(work, "fleet_rk", route_env, [
-            "route", "--socket", ksock, "--backends", f"{sk},{sb}"], ksock),
-            "fleet_rk")[0]
-        live.append((prk, ksock))
+        routers = [spawn(work, name, route_env, ["route", "--socket", sock,
+                                                 "--backends", backends],
+                         sock)
+                   for name, sock, backends in (
+                       ("fleet_r", rsock, f"{sa},{sb}"),
+                       ("fleet_rk", ksock, f"{sk},{sb}"))]
+        live.extend((p[0], p[1]) for p in routers)
+        pr, prk = [await_daemon(*p, name)[0] for p, name in
+                   zip(routers, ("fleet_r", "fleet_rk"))]
         sample_apps()
 
         # ---- a: the job whole, through the router
         whole, resp, wall_a = job(rsock, "fleet-routed")
+        routed = resp
         d_pol = distance(whole)
         why = [e for e in client.flight(rsock, job_key="fleet-routed")[
             "events"] if e["kind"] == "route"]
@@ -2297,8 +2452,11 @@ def fleet_phase(cpu, work, data, truth, threads) -> None:
             raise RuntimeError(f"fleet scattered: a shard parsed it all "
                                f"{shards}")
 
-        # ---- c: the same, with shard 0's backend killed mid-shard
-        fa, resp, wall_c = job(ksock, "fleet-failover", shards=2)
+        # ---- c: the first two contigs as two shards, with shard 0's
+        # backend killed mid-shard (their bytes: whole's first two)
+        whole_fo = fasta_head(whole, FAILOVER_CONTIGS)
+        fa, resp, wall_c = job(ksock, "fleet-failover", job_paths=paths_fo,
+                               shards=2)
         rc = pk.wait(timeout=60)
         counters = client.route_status(ksock)["counters"]
         events = client.flight(ksock, job_key="fleet-failover")["events"]
@@ -2308,14 +2466,15 @@ def fleet_phase(cpu, work, data, truth, threads) -> None:
                and e.get("key") == key0 and e.get("winner")]
         done = [r for r in client.journal_query(sb, job_key=key0)["records"]
                 if r.get("kind") == "done"]
-        emit("fleet", part="failover", identical=fa == whole,
+        emit("fleet", part="failover", contigs=FAILOVER_CONTIGS,
+             identical=fa == whole_fo,
              killed_rc=rc, route_failover=counters.get("route_failover", 0),
              failover_keys=[e.get("job_key") for e in failed],
              survivor=won[0]["backend"] if won else None,
              survivor_done_records=len(done),
              backends=resp["scatter"]["backends"],
              wall_s=resp["wall_s"], client_wall_s=round(wall_c, 3))
-        if fa != whole or rc != -signal.SIGKILL \
+        if fa != whole_fo or rc != -signal.SIGKILL \
                 or counters.get("route_failover", 0) < 1 \
                 or key0 not in [e.get("job_key") for e in failed] \
                 or not won or won[0]["backend"] != sb or not done:
@@ -2323,9 +2482,10 @@ def fleet_phase(cpu, work, data, truth, threads) -> None:
                                "the dead backend's shard under its key, or "
                                "the bytes differ")
 
-        # ---- d: the one-shot CLI as two ranks at once
+        # ---- d: the one-shot CLI as two ranks at once, on the failover
+        # part's two contigs (one each)
         argv = ["-t", str(threads), "-m", "5", "-x", "-4", "-g", "-8", "-c",
-                "1", "--cudaaligner-batches", "1", *paths]
+                "1", "--cudaaligner-batches", "1", *paths_fo]
         ranks = []
         for r in range(2):
             out = open(os.path.join(work, f"fleet_part{r}.fasta"), "wb")
@@ -2350,10 +2510,10 @@ def fleet_phase(cpu, work, data, truth, threads) -> None:
         parts = [read_bytes(os.path.join(work, f"fleet_part{r}.fasta"))
                  for r in range(2)]
         rcs = [proc.returncode for proc, _, _, _ in ranks]
-        emit("fleet", part="ranks", identical=parts[0] + parts[1] == whole,
+        emit("fleet", part="ranks", identical=parts[0] + parts[1] == whole_fo,
              rcs=rcs, walls_s=rank_walls,
              contigs=[[n for n, _ in fasta_records(p)] for p in parts])
-        if rcs != [0, 0] or parts[0] + parts[1] != whole:
+        if rcs != [0, 0] or parts[0] + parts[1] != whole_fo:
             raise RuntimeError(f"fleet ranks: rcs {rcs}, "
                                f"{[len(p) for p in parts]} bytes")
 
@@ -2362,13 +2522,10 @@ def fleet_phase(cpu, work, data, truth, threads) -> None:
         for sock in (sa, sb):
             m = client.metrics(sock)
             snaps[m["identity"]["daemon_id"]] = m
-        out = subprocess.run(
-            [sys.executable, "-m", "racon_tpu_torch.cli", "metrics",
-             "--fleet", f"{sa},{sb}", "--json"], cwd=ROOT, env=base,
-            capture_output=True, timeout=120)
-        if out.returncode != 0:
-            raise RuntimeError(f"fleet metrics: {out.stderr[-2000:]}")
-        doc = json.loads(out.stdout)
+        rc, out = read_side(["metrics", "--fleet", f"{sa},{sb}", "--json"])
+        if rc != 0:
+            raise RuntimeError(f"fleet metrics: exit {rc}")
+        doc = json.loads(out)
         merged = aggregate.merge_snapshots(
             {k: m["snapshot"] for k, m in snaps.items()})
         keys = sorted({k for m in snaps.values()
@@ -2392,6 +2549,172 @@ def fleet_phase(cpu, work, data, truth, threads) -> None:
                 c["fleet"] != sum(c["daemons"]) or c["fleet"] <= 0
                 for c in counters.values()):
             raise RuntimeError(f"fleet metrics: {counters}, {q_bad}")
+
+        # ---- g: the wrapper, one one-shot process per chunk: two chunks
+        # of two contigs (the chunk size of the larger contig pair)
+        lens = [len(q) for _, q in fasta_records(read_bytes(paths[2]))]
+        split = max(lens[0] + lens[1], lens[2] + lens[3])
+        report = os.path.join(work, "wrapper_chunk.metrics.json")
+        wargs = ["--split", str(split), "-c", "1", "--cudaaligner-batches",
+                 "1", "-t", str(threads), *paths]
+        out, wall_w = run_wrapper(
+            work, wargs, {**staged, "RACON_TPU_TORCH_METRICS_JSON": report},
+            "wrapper_split")
+        chunks = re.findall(rb"target split into (\d+) chunk", out.stderr)
+        device = [{"poa_s": float(p), "align_s": float(a)}
+                  for p, a in re.findall(rb"device poa ([0-9.]+) s / align "
+                                         rb"([0-9.]+) s", out.stderr)]
+        two = reads_on_two_contigs(paths[1])
+        emit("fleet", part="wrapper_split", rc=out.returncode,
+             identical=out.stdout == whole, split_bytes=split,
+             chunks=int(chunks[0]) if chunks else None, chunk_device=device,
+             reads_on_two_contigs=two, wall_s=round(wall_w, 3),
+             routed_wall_s=round(wall_a, 3))
+        if out.returncode != 0 or out.stdout != whole or chunks != [b"2"] \
+                or len(device) != 2 or two != 0 \
+                or any(d["poa_s"] <= 0 or d["align_s"] <= 0
+                       for d in device):
+            raise RuntimeError(f"fleet wrapper_split: rc {out.returncode}, "
+                               f"{chunks} chunks, device {device}, "
+                               f"{two} reads on two contigs: "
+                               f"{out.stderr[-2000:]}")
+
+        # ---- h: the wrapper against the router, which scatters; then the
+        # same invocation again, answered by the backends' journals
+        def done_counts():
+            return {sock: client.metrics(sock)["snapshot"]["counters"]
+                    for sock in (sa, sb)}
+
+        def delta(after, before, name):
+            return sum(after[k].get(name, 0) - before[k].get(name, 0)
+                       for k in after)
+
+        sargs = ["--server", rsock, *wargs]
+        c0 = done_counts()
+        out, wall_s = run_wrapper(work, sargs, base, "wrapper_served")
+        c1 = done_counts()
+        again, wall_r = run_wrapper(work, sargs, base, "wrapper_served2")
+        c2 = done_counts()
+        scat = [e for e in client.flight(rsock)["events"]
+                if e["kind"] == "route_scatter"
+                and str(e.get("job_key", "")).startswith("wrap-")]
+        wkey = scat[-1]["job_key"] if scat else None
+        # the winners of both runs: the repeat's are the same two keys
+        won = sorted({e.get("key") for e in client.flight(
+            rsock, job_key=wkey)["events"] if wkey
+            and e["kind"] == "route_scatter_shard" and e.get("winner")})
+        taken = b"scatter-capable router" in out.stderr
+        emit("fleet", part="wrapper_served", rc=[out.returncode,
+                                                 again.returncode],
+             scatter_taken=taken, job_key=wkey,
+             shard_keys=scat[-1]["keys"] if scat else None,
+             shard_winners=won, identical=out.stdout == whole,
+             wall_s=round(wall_s, 3),
+             scattered_client_wall_s=round(wall_b, 3),
+             repeat={"identical": again.stdout == whole,
+                     "wall_s": round(wall_r, 3),
+                     "jobs_run": delta(c2, c1, "serve_jobs_completed"),
+                     "dedup_hits": delta(c2, c1, "serve_dedup_hits")},
+             jobs_run=delta(c1, c0, "serve_jobs_completed"))
+        if out.returncode or again.returncode or not taken \
+                or out.stdout != whole or again.stdout != whole \
+                or won != sorted(scat[-1]["keys"]) \
+                or delta(c2, c1, "serve_jobs_completed") \
+                or delta(c2, c1, "serve_dedup_hits") != 2:
+            raise RuntimeError(f"fleet wrapper_served: {out.stderr[-2000:]}"
+                               f" {again.stderr[-1000:]}")
+
+        # ---- i: the failover job's lineage across the router, the dead
+        # backend and the survivor
+        tpath = os.path.join(work, "lineage_trace.json")
+        out = subprocess.run(
+            [sys.executable, "-m", "racon_tpu_torch.cli", "inspect",
+             "--fleet", ksock, "--job-key", "fleet-failover", "--json",
+             "--trace-out", tpath], cwd=ROOT, env=base, capture_output=True,
+            timeout=300)
+        lin = json.loads(out.stdout) if out.stdout.strip() else {}
+        with open(tpath) as fh:
+            flows = sum(1 for e in json.load(fh)["traceEvents"]
+                        if e.get("ph") in ("s", "f"))
+        keys = {n["key"] for n in lin.get("nodes", ())}
+        edges = {(e["kind"], e["from"], e["to"])
+                 for e in lin.get("edges", ())}
+        shard_keys = [f"fleet-failover-shard-{i}of2" for i in range(2)]
+        complete = bool(lin.get("complete")) \
+            and {"fleet-failover", *shard_keys} <= keys \
+            and ("failover", key0, key0) in edges \
+            and all(("gather", k, "fleet-failover") in edges
+                    for k in shard_keys)
+        text_rc, text = read_side(["inspect", "--fleet", ksock,
+                                   "--job-key", "fleet-failover"])
+        lanes = [l for l in text.splitlines() if l.startswith("lane ")]
+        emit("fleet", part="inspect_fleet", rc=[out.returncode, text_rc],
+             complete=complete, nodes=sorted(keys),
+             edges=sorted(edges), warnings=lin.get("warnings"),
+             offsets=[{"target": d["target"],
+                       "offset_s": d["clock_offset_s"],
+                       "confidence_s": d["offset_confidence_s"],
+                       "ok": d["ok"]} for d in lin.get("daemons", ())],
+             flow_events=flows, lanes=lanes)
+        if out.returncode or text_rc or not complete \
+                or flows <= 0 or len(lanes) != 3:
+            raise RuntimeError(f"fleet inspect_fleet: {out.stderr[-2000:]}"
+                               f" {text[-3000:]}")
+
+        # ---- j: top of the router's fleet against a scrape of the same
+        # daemons, no job in between
+        top_rc, out = read_side(["top", "--fleet", rsock, "--once",
+                                 "--json"])
+        top = json.loads(out)
+        scrape_rc, out = read_side(["metrics", "--fleet",
+                                    f"{rsock},{sa},{sb}", "--json"])
+        mdoc = json.loads(out)
+        rows = {d["target"]: d for d in top["daemons"]}
+        route = (rows.get(rsock) or {}).get("route") or {}
+        same = top["merged"]["counters"] == mdoc["merged"]["counters"]
+        emit("fleet", part="top_fleet", rc=[top_rc, scrape_rc],
+             targets=list(rows), alive=top["alive"],
+             router_backends=[b.get("target")
+                              for b in route.get("backends", ())],
+             route_counters=route.get("counters"),
+             counters_equal=same,
+             counters=len(top["merged"]["counters"]))
+        if top_rc or scrape_rc or not same \
+                or list(rows) != [rsock, sa, sb] or top["alive"] != 3 \
+                or sorted(b.get("target") for b in route.get(
+                    "backends", ())) != sorted([sa, sb]):
+            raise RuntimeError(f"fleet top_fleet: {list(rows)}, counters "
+                               f"equal {same}")
+
+        # ---- k: the routed job's waterfall from its backend, and a
+        # wrapper chunk's from its run report
+        jid, bsock = routed["job_id"], routed["routed_backend"]
+        rcs, texts = zip(*(read_side(a) for a in (
+            ["explain", "--socket", bsock, "--job", str(jid), "--json"],
+            ["explain", "--socket", bsock, "--job", str(jid)],
+            ["explain", "--metrics-json", report])))
+        stages = [e for e in json.loads(texts[0])["events"]
+                  if e["kind"] == "job_stages"]
+        with open(report) as fh:
+            rep_walls = json.load(fh)["details"]["stage_walls"]
+        want = sum(routed["report"]["details"]["stage_walls"].values())
+        got = {"job_stages": sum(stages[-1]["stage_walls"].values())
+               if stages else None,
+               "rendered": waterfall_sum(texts[1]),
+               "report": sum(rep_walls.values()),
+               "report_rendered": waterfall_sum(texts[2])}
+        emit("fleet", part="explain", rc=list(rcs),
+             job=jid, backend=bsock, routed_stage_walls_sum=round(want, 6),
+             sums={k: None if v is None else round(v, 6)
+                   for k, v in got.items()})
+        ok = (got["job_stages"] is not None
+              and abs(got["job_stages"] - want) <= 0.01 * want
+              and abs(got["rendered"] - want) <= 0.01 * want
+              and abs(got["report_rendered"] - got["report"])
+              <= 0.01 * got["report"])
+        if any(rcs) or not ok:
+            raise RuntimeError(f"fleet explain: {got} against {want}: "
+                               f"{texts[1][-2000:]}")
 
         # ---- f: the card's processes and each backend's memory
         sample_apps()
@@ -2437,24 +2760,38 @@ def default_path(cli, cpu, work, reads, paf, draft, truth, d_draft,
             "1", "--cudaaligner-batches", "1"]
     knobs = dict.fromkeys(DEFAULT_PATH_KNOBS)
     doc = {}
+    # the first Mb, for run 3 and pipeline_bytes
+    region_bp = min(1_000_000, len(read_fasta(draft)))
+    region = cut_region(os.path.dirname(reads),
+                        os.path.join(work, "region_1mb"), region_bp)
+    region_truth = truth_prefix(truth, read_fasta(region[2]),
+                                len(read_fasta(draft)) / len(truth))
+    region_draft = chunked_distance(read_fasta(region[2]), region_truth,
+                                    cpu)
     # run 3 attributes the default path's wall: the pipeline and the POA
-    # split as in run 2, the align stage all on the card
+    # split as in run 2 (its stored rates, which pipeline_bytes pins), the
+    # align stage all on the card, on the first Mb
     for run in (1, 2, 3):
         out_path = os.path.join(work, f"default{run}.fasta")
         flags, tpath, mpath = trace_args(work, "default") if run == 2 \
             else ([], None, None)
+        inputs, run_truth, run_draft = (
+            (list(region), region_truth, region_draft) if run == 3
+            else ([reads, paf, draft], truth, d_draft))
         with env_set(RACON_TPU_TORCH_CACHE_DIR=store, **{
                 **knobs, "RACON_TPU_TORCH_ALIGN_DEVICE_ONLY":
                     "1" if run == 3 else None}):
             pol, wall, launches = counted_polish(
-                cli, argv + flags + [reads, paf, draft], out_path)
+                cli, argv + flags + inputs, out_path)
         if run < 3:
             with open(os.path.join(store, "calibration.json")) as fh:
                 doc = json.load(fh)
-        d_pol = chunked_distance(read_fasta(out_path), truth, cpu)
+        d_pol = chunked_distance(read_fasta(out_path), run_truth, cpu)
         a, p = pol.align_split_detail, pol.poa_split_detail
         emit("polish_default", run=run,
-             align_device_only=run == 3, argv=argv, wall_s=round(wall, 3),
+             align_device_only=run == 3,
+             region_bp=region_bp if run == 3 else None, argv=argv,
+             wall_s=round(wall, 3),
              stage_walls_s={k: round(v, 3)
                             for k, v in pol.stage_walls.items()},
              launches=launches,
@@ -2481,10 +2818,10 @@ def default_path(cli, cpu, work, reads, paf, draft, truth, d_draft,
              ready_high_water=pol.ready_high_water,
              pipeline_overlap_s=round(pol.pipeline_overlap_s, 3),
              stored_rates=doc, card_states=pol.card_states,
-             draft_distance=d_draft, polished_distance=d_pol)
-        if d_pol > d_draft / 10:
+             draft_distance=run_draft, polished_distance=d_pol)
+        if d_pol > run_draft / 10:
             raise RuntimeError(f"polish_default run {run}: distance "
-                               f"{d_pol} > draft {d_draft} / 10")
+                               f"{d_pol} > draft {run_draft} / 10")
         for name, n in launches.items():
             if n <= 0:
                 raise RuntimeError(f"polish_default run {run} launched no "
@@ -2512,9 +2849,6 @@ def default_path(cli, cpu, work, reads, paf, draft, truth, d_draft,
             "align_cpu", "dev", CudaPolisher.CPU_NS_PER_CELL),
         "RACON_TPU_TORCH_RATE_ALIGN_WFA_DEV": rate(
             "align_wfa", "dev", CudaPolisher.WFA_DEV_NS_PER_STEP)}
-    region_bp = min(1_000_000, len(read_fasta(draft)))
-    region = cut_region(os.path.dirname(reads),
-                        os.path.join(work, "region_1mb"), region_bp)
     outs, runs = {}, {}
     # the pipeline off, on, and on with tracing: the same bytes
     for mode in ("off", "on", "on_traced"):
@@ -2941,8 +3275,10 @@ def main(argv=None) -> int:
                     "and map_rounds with the whole set's --rounds 2 run; "
                     "cache / fusion: env, build, dataset and that phase "
                     "only; serve: env, build, dataset, the staged polish "
-                    "and serve; fleet: env, build, dataset and fleet; then "
-                    "exit 0 without the result line")
+                    "and serve; fleet: env, build, dataset and fleet (the "
+                    "router, shards, failover, ranks, scrape, the wrapper "
+                    "split and served, inspect --fleet, top --fleet and "
+                    "explain); then exit 0 without the result line")
     ap.add_argument("--keep", default=None,
                     help="directory to copy the traced runs' traces and "
                     "reports to (default: none kept)")
@@ -3037,6 +3373,8 @@ def main(argv=None) -> int:
                        args.threads, dev, args.keep, quality=True)
         elif args.only == "cache":
             cache_phase(cli, cpu, work, argv_polish, truth)
+            cache_persist(cli, work, fuse_cuts(work, data)["a"],
+                          args.threads)
             cache_default(cli, work, argv_polish)
         elif args.only == "fusion":
             fusion_phase(work, data, args.threads)
@@ -3048,9 +3386,7 @@ def main(argv=None) -> int:
                                                      out_path)
             emit("polish", wall_s=round(wall, 3), launches=launches,
                  batch=pol.poa_batch_size)
-            serve_phase(cli, work, data, (reads, paf, draft),
-                        read_bytes(out_path), wall, launches,
-                        pol.poa_batch_size, args.threads)
+            serve_phase(cli, work, data, pol.poa_batch_size, args.threads)
         elif args.only == "traced":
             with env_set(**STAGED_ENV):
                 _, wall, launches = counted_polish(cli, argv_polish,
@@ -3150,12 +3486,14 @@ def main(argv=None) -> int:
     traced_phase(cli, work, argv_polish, out_path, wall, args.keep)
     long_cap_phase(cli, work, args.threads)
 
-    # ---- fusion (the device executor across two tenants) ---------------
-    fusion_phase(work, data, args.threads)
+    # ---- fusion (the device executor across two tenants), then the
+    # cache's persistent tier on fusion's first cut ---------------------
+    cut_a, cut_a_bytes, cut_a_wall = fusion_phase(work, data, args.threads)
+    cache_persist(cli, work, cut_a, args.threads, off_bytes=cut_a_bytes)
 
     # ---- serve (the daemon: served jobs on the card) --------------------
-    serve_phase(cli, work, data, (reads, paf, draft), read_bytes(out_path),
-                wall, launches, polisher.poa_batch_size, args.threads)
+    serve_phase(cli, work, data, polisher.poa_batch_size, args.threads,
+                cut=cut_a, cut_bytes=cut_a_bytes, cut_wall=cut_a_wall)
 
     # ---- fleet (a router, two backends, shards, a failover, two ranks) ---
     fleet_phase(cpu, work, data, truth, args.threads)

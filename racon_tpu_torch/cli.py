@@ -17,9 +17,15 @@ Chrome trace of the run and ``--metrics-json`` its run report
 package's CLI does (racon_tpu/cli.py:393-444).
 
 ``serve``, ``submit`` and ``status`` are the serve daemon's subcommands,
-``route`` the fleet router's and ``metrics`` the fleet scrape's
+``route`` the fleet router's, ``metrics`` the fleet scrape's, and
+``top``, ``inspect`` and ``explain`` the read side's: a live view of a
+daemon or the fleet, a job's timeline (from a daemon, a flight dump, or
+the fleet's lineage) and a job's cost waterfall
 (``racon_tpu_torch/serve``), dispatched before option parsing, as the
-JAX package's CLI does (racon_tpu/cli.py:286-307).  With
+JAX package's CLI does (racon_tpu/cli.py:290-313).  The installed
+commands are ``racon-tpu-torch`` (this CLI) and the dataset tools
+``racon-tpu-torch-wrapper``, ``-rampler`` and ``-preprocess``
+(``racon_tpu_torch/tools``).  With
 ``RACON_TPU_TORCH_COORD`` set and ``RACON_TPU_TORCH_NPROC`` > 1 the
 one-shot form polishes and emits only rank ``RACON_TPU_TORCH_RANK``'s
 slice of the targets (``racon_tpu_torch/parallel/multihost.py``), on
@@ -32,6 +38,10 @@ slice of the targets (``racon_tpu_torch/parallel/multihost.py``), on
     python -m racon_tpu_torch.cli status --socket PATH [--json]
     python -m racon_tpu_torch.cli route --socket PATH --backends S1,S2,...
     python -m racon_tpu_torch.cli metrics (--socket PATH | --fleet S1,S2,...)
+    python -m racon_tpu_torch.cli top (--socket PATH | --fleet S1,S2,...)
+    python -m racon_tpu_torch.cli inspect (--socket PATH | --dump FILE |
+                                           --fleet ADDR --job-key K)
+    python -m racon_tpu_torch.cli explain (--socket PATH | --metrics-json FILE)
 """
 
 from __future__ import annotations
@@ -61,6 +71,13 @@ USAGE = """usage: racon_tpu_torch [options ...] <sequences> <overlaps> <target s
        racon_tpu_torch route --socket PATH --backends S1,S2,... [--tcp H:P]
        racon_tpu_torch metrics (--socket PATH | --fleet S1,S2,...)
                        [--json | --prometheus]
+       racon_tpu_torch top (--socket PATH | --fleet S1,S2,...)
+                       [--interval S] [--count N] [--once] [--json]
+       racon_tpu_torch inspect (--socket PATH | --dump FILE | --fleet ADDR)
+                       [--job N] [--job-key K] [--trace-id T]
+                       [--trace-out FILE] [--last N] [--json]
+       racon_tpu_torch explain (--socket PATH | --metrics-json FILE)
+                       [--job N] [--last N] [--json]
 
     <sequences>  FASTA/FASTQ (gzip allowed) reads used for correction
     <overlaps>   MHAP/PAF/SAM (gzip allowed) overlaps of reads and
@@ -226,13 +243,16 @@ def _report_details(polisher, device) -> dict:
 def main(argv=None, out=None):
     """Run one polish of ``--rounds`` rounds; writes FASTA to ``out``
     (default stdout) and returns the last round's polisher (its stage
-    walls, kernel counters and ``rounds_report``).  Then,
+    walls, kernel counters and ``rounds_report``), or 0 when ``argv``
+    is None: the process entry, whose return a console script passes to
+    ``sys.exit``.  Then,
     with ``--metrics-json``, the run report and, with ``--trace``, the
     trace; with ``RACON_TPU_TORCH_FLIGHT_DUMP`` set, the flight ring,
     which an unhandled exception also dumps there."""
+    entry_point = argv is None
     argv = sys.argv[1:] if argv is None else argv
     if argv and argv[0] in ("serve", "route", "submit", "status",
-                            "metrics"):
+                            "metrics", "top", "inspect", "explain"):
         # the serve tier's subcommands parse their own flags and exit
         if argv[0] == "serve":
             from racon_tpu_torch.serve.server import main as entry
@@ -242,8 +262,14 @@ def main(argv=None, out=None):
             from racon_tpu_torch.serve.client import main_submit as entry
         elif argv[0] == "status":
             from racon_tpu_torch.serve.client import main_status as entry
-        else:
+        elif argv[0] == "metrics":
             from racon_tpu_torch.serve.fleet import main_metrics as entry
+        elif argv[0] == "top":
+            from racon_tpu_torch.serve.top import main as entry
+        elif argv[0] == "inspect":
+            from racon_tpu_torch.serve.inspect import main as entry
+        else:
+            from racon_tpu_torch.serve.explain import main as entry
         raise SystemExit(entry(argv[1:]))
     if argv and argv[0] == "run":
         # the one-shot form by name: `run reads draft` maps and polishes
@@ -322,7 +348,7 @@ def main(argv=None, out=None):
         path = obs_flight.FLIGHT.dump(flight_dump, reason="run_done")
         print(f"[racon_tpu_torch::] flight dump written to {path}",
               file=sys.stderr)
-    return polisher
+    return 0 if entry_point else polisher
 
 
 if __name__ == "__main__":

@@ -24,6 +24,11 @@ The daemon pays it once and serves polish jobs over a unix socket:
   shard keys and the gather;
 * :mod:`~racon_tpu_torch.serve.fleet` -- the fleet scrape and the
   ``metrics`` subcommand;
+* :mod:`~racon_tpu_torch.serve.top`, :mod:`~racon_tpu_torch.serve.inspect`
+  and :mod:`~racon_tpu_torch.serve.explain` -- the read side: a live
+  view of a daemon or the fleet (``top``), a job's timeline from a
+  daemon, a flight dump or the fleet's lineage (``inspect``), and a
+  job's cost waterfall with the calibration's drift (``explain``);
 * :mod:`~racon_tpu_torch.serve.client` -- the blocking client and the
   ``submit`` / ``status`` subcommands;
 * :mod:`~racon_tpu_torch.serve.protocol` -- the framing, byte-equal to
