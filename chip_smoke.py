@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--genome-len N] [--threads T] [--work DIR]
                           [--only band|wfa|default|traced|map|cache|
-                                  fusion|serve|fleet]
+                                  fusion|serve|fleet|lockstep]
                           [--keep DIR]
 
 Needs one CUDA card.  Phases, one JSON line each:
@@ -19,17 +19,17 @@ Needs one CUDA card.  Phases, one JSON line each:
                 30x, 8 kb reads, seed 7) and cuts a 120 kb region of
                 it whose windows and overlaps feed the checks below;
 4. kernel_check 32 real windows at stock caps (V 2048, LP 1024,
-                WB 256), timed, 8 of them spread over the depth
-                range (every fourth by layer count, the deepest
-                among them) also alone, plus
+                WB 256), timed, 3 of them spread over the depth
+                range (evenly by layer count, the deepest among them)
+                also alone, plus
                 tiny windows (a forced reject and the three
                 stress windows of tools/poa_windows.py, which take the
                 kernel's device-memory pred and row paths and its
                 second pass): the POA
                 kernel and its plain PyTorch version on the card must
                 agree exactly on cons[:len], mout[:, :5] and the
-                shared-memory path counts on the 8 and the tiny
-                windows, and the 8's kernel rows must equal theirs in
+                shared-memory path counts on the 3 and the tiny
+                windows, and the 3's kernel rows must equal theirs in
                 the batch of 32; then a full-card batch, the
                 region's fitting windows tiled to >= 4x the kernel's
                 resident blocks, every replica equal to its original,
@@ -40,9 +40,11 @@ Needs one CUDA card.  Phases, one JSON line each:
                 plain version;
 5. align_check  32 real overlaps of the region at their real lengths:
                 the WFA kernel (emax 2048) and the banded kernel (wb
-                2048, proportional knots; wb 4096 on measured knots for
-                8 of them) against their plain versions, plus tiny
-                edge cases and the constructed pairs of
+                2048, proportional knots, its plain version on 11 of
+                them spread over the shorter half; wb 4096 on measured
+                knots for 8 of them spread over all lengths up to the
+                longest) against their plain versions, plus
+                tiny edge cases and the constructed pairs of
                 tools/wfa_pairs.py (WFA edge paths, emax 128) and
                 tools/band_pairs.py (forced band steps); WFA meta and
                 tape[:n], band distance and, below BIG, move count and
@@ -86,6 +88,28 @@ Needs one CUDA card.  Phases, one JSON line each:
                 on the card, at the default cap (pair on the CPU) and at
                 RACON_TPU_TORCH_MAX_ALIGN_DIM=32768 (pair on a band
                 rung): identical FASTA, the pair certified on the card;
+   lockstep_check  the lockstep POA kernel (windows past the whole-
+                window kernel's caps) against its plain version on the
+                card: the rounds a -w 1000 batch of 8 region windows
+                (spread over depth) exports, the first, middle and last,
+                at the auto band (wb 512) and with -b (wb 256), the
+                middle auto round at the kernel's wider builds (its
+                layers widened to bands of 1,024, 2,048 and 4,096
+                columns; its lanes of layers up to 1,024 bases at 1,025
+                columns unbanded), every
+                round of the tiny windows at caps that take the
+                unbanded kernel (l_b 128), and a constructed round whose
+                preds lag 5 or more band quanta (wb 32); node and seq
+                tapes must agree exactly; per round the CUDA-event ms
+                (median of 5), the plain ms, the DP cells and the bound;
+   polish_w1000 the port's CLI at -w 1000 (caps V 4096, LP 2048: every
+                megabatch takes the lockstep engine), staged, all on the
+                card, cache off, on the first 1 Mb, then with -b: walls,
+                stage walls, lockstep rounds and
+                phase walls, launches (the lockstep kernel's > 0, the
+                whole-window kernel's 0), rejects by code (vcap, pcap,
+                kcap), distance to the truth <= draft / 10; phase 6's
+                -w 500 polish must have run 0 lockstep rounds;
    polish_default  the same CLI at the port's defaults (streaming
                 pipeline, device/CPU splits of both stages), twice, in
                 a fresh calibration store under the work directory:
@@ -175,14 +199,16 @@ Needs one CUDA card.  Phases, one JSON line each:
                 histogram's p50/p90/p99 equal ``merge_snapshots``'s;
                 ``wrapper_split``, the port's wrapper
                 (racon_tpu_torch/tools/wrapper.py) in a subprocess under
-                the backends' staged environment, ``--split`` at the
-                larger contig pair's bytes (two chunks of two contigs),
-                ``-c 1 --cudaaligner-batches 1 -t <threads>``: one
-                one-shot CLI process per chunk, its bytes equal the
-                routed job's, each chunk's device poa and align seconds
-                from its stderr > 0, no read with overlaps on two
-                contigs, the wall; ``wrapper_served``, the wrapper with
-                ``--server <router>`` and the same ``--split``: the
+                the backends' staged environment, on the failover part's
+                two-contig job, ``--split`` at the larger contig's bytes
+                (two chunks of one contig), ``-c 1
+                --cudaaligner-batches 1 -t <threads>``: one one-shot CLI
+                process per chunk, its bytes equal the routed job's
+                first two records, each chunk's device poa and align
+                seconds from its stderr > 0, no read with overlaps on
+                two contigs, the wall; ``wrapper_served``, the wrapper
+                with ``--server <router>`` on the whole job,
+                ``--split`` at the larger contig pair's bytes: the
                 router scatters it (shards=auto, two winners on its
                 flight), the bytes equal, then the same invocation
                 again, answered by the backends' journals (0 jobs run, 2
@@ -234,7 +260,9 @@ Needs one CUDA card.  Phases, one JSON line each:
                 native CPU engine: summed edit distance between the two;
 8. kernels      every ported kernel with its launches in phase 6 (the
                 seed-word kernel's in map_rounds' first-Mb --rounds 1
-                run).
+                run, the lockstep kernel's in polish_w1000's first
+                run; its ms, plain ms and bound summed over
+                lockstep_check's three auto-band rounds).
 
 Then the card's line as nvidia-smi prints it and the result line.  Any
 failure raises and the script exits non-zero without a result line.
@@ -248,7 +276,8 @@ persistent part (against the cut's own cache-off run) and
 ``cache_default`` (the default path with the cache off, on, on, off,
 twice; the same bytes), ``--only fusion`` phases 1-3 and fusion,
 ``--only serve`` phases 1-3, the staged polish and serve, ``--only
-fleet`` phases 1-3 and fleet.  ``--keep DIR`` copies the
+fleet`` phases 1-3 and fleet, ``--only lockstep`` phases 1-3,
+lockstep_check and polish_w1000.  ``--keep DIR`` copies the
 traced runs' traces and reports to DIR (open a trace in Perfetto).  The
 calibration store is off (``RACON_TPU_TORCH_CACHE_DIR=""``) outside
 polish_default.  The result cache is on (the default), and every
@@ -279,10 +308,12 @@ if ROOT not in sys.path:
 
 # H100 SXM ceilings: HBM bytes/s from NVIDIA's data sheet; int32 ALU
 # operations/s from the Hopper architecture white paper's SM (64 INT32
-# lanes of 132 SMs at the 1.98 GHz boost clock: 16.7 T ops/s; the data
-# sheet's 67 TFLOP/s float32 counts 128 FP32 lanes and an FMA as two)
+# lanes of 132 SMs at the 1.98 GHz boost clock: 16.7 T ops/s); float32
+# operations/s from its 128 FP32 lanes (33.5 T ops/s: an add, a max or
+# a compare is one; the data sheet's 67 TFLOP/s counts an FMA as two)
 HBM_BYTES_PER_S = 3.35e12
 ALU_OPS_PER_S = 132 * 64 * 1.98e9
+FP32_OPS_PER_S = 132 * 128 * 1.98e9
 # The operation counts below are the least int32 ALU work of each
 # function per DP cell, whatever kernel computes it: no loads, stores,
 # address arithmetic or scan overhead.
@@ -295,6 +326,17 @@ OPS_PER_CELL = 15
 # POA, per cell and per pred row past a rank's first: the compare and
 # the selects of the max and of its slot
 OPS_PER_EXTRA_PRED = 3
+# lockstep POA (one rank's float32 score at one column, as the JAX
+# kernels; a plain uint8 direction code, nothing clipped or packed):
+# int32, the substitution 2 (compare, select) and the direction code's
+# two selects 2; float32, the diagonal and vertical candidates 2
+# (adds), their max 1, the gap chain max(T[j], H[j-1] + gap) 2 and the
+# direction code's two compares 2
+LOCKSTEP_INT_OPS_PER_CELL = 4
+LOCKSTEP_FP32_OPS_PER_CELL = 7
+# lockstep POA, per cell and per pred row past a rank's first: its two
+# candidates (adds) and their two maxes, float32
+LOCKSTEP_FP32_OPS_PER_EXTRA_PRED = 4
 # WFA (one diagonal at one step): the substitution and gap candidates 2
 # (adds), their max 2, the clip to both sequence ends 2, one compare
 # that ends the extension 1
@@ -618,11 +660,13 @@ def timed_pair(kernel, plain, reps: int = 5) -> tuple:
     return out, ref, ms, 1e3 * (time.perf_counter() - t0)
 
 
-def bound(in_bytes: int, out_bytes: int, ops: int) -> tuple:
-    """(bound ms, what binds): bytes over the HBM rate vs int32
-    operations over the ALU rate."""
+def bound(in_bytes: int, out_bytes: int, ops: int,
+          fp32_ops: int = 0) -> tuple:
+    """(bound ms, what binds): bytes over the HBM rate vs operations,
+    int32 over the ALU rate and float32 over the FP32 rate (two pipes
+    that run side by side: the slower one binds)."""
     bytes_ms = 1e3 * (in_bytes + out_bytes) / HBM_BYTES_PER_S
-    ops_ms = 1e3 * ops / ALU_OPS_PER_S
+    ops_ms = 1e3 * max(ops / ALU_OPS_PER_S, fp32_ops / FP32_OPS_PER_S)
     return max(bytes_ms, ops_ms), \
         "bytes" if bytes_ms >= ops_ms else "operations"
 
@@ -636,12 +680,37 @@ def poa_ops(cells: int, pred_rows: int, wb: int) -> int:
         max(0, pred_rows * wb - cells) * OPS_PER_EXTRA_PRED
 
 
+def lockstep_ops(cells: int, pred_rows: int = 0, cols: int = 0) -> tuple:
+    """(int32, float32) operations of lockstep rounds over ``cells``
+    cells (ranks x ``cols`` columns) that folded ``pred_rows`` pred rows
+    in all; with no pred rows given, one a rank (a lower bound)."""
+    extra = max(0, pred_rows * cols - cells)
+    return (cells * LOCKSTEP_INT_OPS_PER_CELL,
+            cells * LOCKSTEP_FP32_OPS_PER_CELL
+            + extra * LOCKSTEP_FP32_OPS_PER_EXTRA_PRED)
+
+
 def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
+#: pairs of align_check's 32 that the band kernel's plain version runs
+#: at wb 2048 (of the shorter half) and at wb 4096 (of all, the longest
+#: among them)
+BAND_PLAIN_PAIRS = 11
+BAND_MEASURED_PAIRS = 8
+
+
+def spread(order: list, n: int) -> list:
+    """``n`` entries of ``order`` evenly spaced and ending at its last,
+    sorted."""
+    return sorted({order[round((k + 1) * len(order) / n) - 1]
+                   for k in range(n)})
+
+
 def align_check(region, dev, cpu) -> dict:
     """Phase 5: the align kernels against their plain versions."""
+    import torch
     from racon_tpu_torch.cuda import align_band as ab
     from racon_tpu_torch.cuda import align_wfa as aw
     from racon_tpu_torch.cuda import build
@@ -680,15 +749,24 @@ def align_check(region, dev, cpu) -> dict:
     knots = [ab.proportional_knots(len(q), len(t), lq)
              for q, t in zip(qs, ts)]
     bargs = align_inputs(qs, ts, lq, dev, knots)
+    # the plain version on BAND_PLAIN_PAIRS of them, spread over the
+    # shorter half by query length: its time follows the longest pair's
+    # rows, whatever the number of pairs, so the long pairs are held to
+    # it once, in band_measured
+    by_len = sorted(range(len(qs)), key=lambda i: (len(qs[i]), i))
+    prow = torch.tensor(spread(by_len[:len(qs) // 2], BAND_PLAIN_PAIRS),
+                        device=dev)
+    pargs = [a[prow].contiguous() for a in bargs]
     bk, bp, bms_k, bplain = timed_pair(
         lambda: ab.band_align(*bargs, wb=wb),
-        lambda: ab.band_align_reference(*bargs, wb=wb))
-    bbad, berr = compare_band(bk, bp)
+        lambda: ab.band_align_reference(*pargs, wb=wb))
+    bbad, berr = compare_band([t[prow] for t in bk], bp)
     bcells = sum(map(len, qs)) * wb
     bbound, bby = bound(nbytes(*bargs), nbytes(*bk),
                         bcells * OPS_PER_BAND_CELL)
     res["band"] = {"wb": wb, "mismatches": bbad, "max_abs_err": berr,
-                   "in_band": int((bp[1][:, 0] < ab.BIG).sum()),
+                   "plain_pairs": prow.tolist(),
+                   "in_band": int((bk[1][:, 0] < ab.BIG).sum()),
                    "cells": bcells, "kernel_ms": bms_k, "plain_ms": bplain,
                    "bound_ms": bbound, "bound_by": bby, "library_ms": None,
                    "phases": cycle_split(bk[1]),
@@ -696,15 +774,17 @@ def align_check(region, dev, cpu) -> dict:
                    .align_band_warps(len(qs), wb),
                    "warps_sweep_ms": warps_sweep(bargs, wb),
                    "dp_cycles_per_row": dp_cycles_per_row(bk[1], bargs[2])}
-    # banded, wb 4096 on measured knots for 8 pairs
-    sub = slice(0, 8)
-    mk = [ab.estimate_center_knots(q, t, lq)
-          for q, t in zip(qs[sub], ts[sub])]
-    margs = align_inputs(qs[sub], ts[sub], lq, dev, mk)
+    # banded, wb 4096 on measured knots for BAND_MEASURED_PAIRS pairs
+    # spread over all lengths, the longest among them
+    mrow = spread(by_len, BAND_MEASURED_PAIRS)
+    mq, mt = [qs[i] for i in mrow], [ts[i] for i in mrow]
+    mk = [ab.estimate_center_knots(q, t, lq) for q, t in zip(mq, mt)]
+    margs = align_inputs(mq, mt, lq, dev, mk)
     mbad, merr = compare_band(ab.band_align(*margs, wb=4096),
                               ab.band_align_reference(*margs, wb=4096))
-    res["band_measured"] = {"wb": 4096, "pairs": 8, "mismatches": mbad,
-                            "max_abs_err": merr}
+    res["band_measured"] = {"wb": 4096, "pairs": mrow,
+                            "longest": max(map(len, mq)),
+                            "mismatches": mbad, "max_abs_err": merr}
     # tiny edge cases: WFA at emax 128 with the constructed pairs of
     # tools/wfa_pairs.py, band at wb 256 (zero knots for the last pair
     # put its end outside the band)
@@ -980,20 +1060,18 @@ def ring_hit_rate(stats) -> float:
 
 
 #: of kernel_check's 32 real windows, how many its plain version also
-#: computes (~7 s a window on the card's host): every fourth by depth,
+#: computes (~7 s a window on the card's host): spread evenly by depth,
 #: the deepest among them (see plain_subset)
-PLAIN_WINDOWS = 8
+PLAIN_WINDOWS = 3
 
 
-def plain_subset(windows) -> list:
-    """Indices of PLAIN_WINDOWS windows spread over the depth range:
-    sorted by layer count, every (len / PLAIN_WINDOWS)-th, ending at
-    the deepest, so the plain version meets the deep, pred-row-heavy
-    windows as well as the shallow ones."""
-    order = sorted(range(len(windows)),
-                   key=lambda i: (len(windows[i].sequences), i))
-    step = len(windows) // PLAIN_WINDOWS
-    return sorted(order[step - 1::step][:PLAIN_WINDOWS])
+def plain_subset(windows, n: int = PLAIN_WINDOWS) -> list:
+    """Indices of ``n`` windows spread over the depth range: sorted by
+    layer count, evenly spaced, ending at the deepest, so the plain
+    version meets the deep, pred-row-heavy windows as well as the
+    shallow ones."""
+    return spread(sorted(range(len(windows)),
+                         key=lambda i: (len(windows[i].sequences), i)), n)
 
 
 def poa_check(fitting, dev, stock) -> tuple:
@@ -1285,19 +1363,22 @@ def chunk_rates(chunks) -> dict:
     return out
 
 
-def launch_counts(mapped: bool = False) -> dict:
+def launch_counts(mapped: bool = False, lockstep: bool = False) -> dict:
     """Every kernel's launch count now (``seed_words`` too when the run
-    maps its overlaps)."""
+    maps its overlaps, ``poa_lockstep`` when its windows are past the
+    whole-window POA kernel's caps, ``-w 1000``)."""
     from racon_tpu_torch.cuda import build
 
     out = build.launch_counts()
     if not mapped:
         del out["seed_words"]
+    if not lockstep:
+        del out["poa_lockstep"]
     return out
 
 
 def counted_polish(cli, argv, out_path, mapped: bool = False,
-                   cold: bool = True):
+                   cold: bool = True, lockstep: bool = False):
     """One CLI polish with every kernel's launch count set to 0 just
     before it, from an empty in-process result cache unless ``cold`` is
     False; returns (polisher, wall s, launches)."""
@@ -1313,7 +1394,7 @@ def counted_polish(cli, argv, out_path, mapped: bool = False,
         polisher = cli.main(argv, out=out)
     wall = time.perf_counter() - t0
     polisher.card_states = (before, card_state())
-    return polisher, wall, launch_counts(mapped)
+    return polisher, wall, launch_counts(mapped, lockstep)
 
 
 #: the staged, all-device path of phase 6 (and of the traced phase)
@@ -2550,27 +2631,30 @@ def fleet_phase(cpu, work, data, truth, threads) -> None:
                 for c in counters.values()):
             raise RuntimeError(f"fleet metrics: {counters}, {q_bad}")
 
-        # ---- g: the wrapper, one one-shot process per chunk: two chunks
-        # of two contigs (the chunk size of the larger contig pair)
-        lens = [len(q) for _, q in fasta_records(read_bytes(paths[2]))]
-        split = max(lens[0] + lens[1], lens[2] + lens[3])
+        # ---- g: the wrapper, one one-shot process per chunk, on the
+        # failover part's two contigs: two chunks of one contig (the
+        # chunk size of the larger one)
+        flags = ["-c", "1", "--cudaaligner-batches", "1", "-t",
+                 str(threads)]
+        lens = [len(q) for _, q in fasta_records(read_bytes(paths_fo[2]))]
+        split = max(lens)
         report = os.path.join(work, "wrapper_chunk.metrics.json")
-        wargs = ["--split", str(split), "-c", "1", "--cudaaligner-batches",
-                 "1", "-t", str(threads), *paths]
         out, wall_w = run_wrapper(
-            work, wargs, {**staged, "RACON_TPU_TORCH_METRICS_JSON": report},
+            work, ["--split", str(split), *flags, *paths_fo],
+            {**staged, "RACON_TPU_TORCH_METRICS_JSON": report},
             "wrapper_split")
         chunks = re.findall(rb"target split into (\d+) chunk", out.stderr)
         device = [{"poa_s": float(p), "align_s": float(a)}
                   for p, a in re.findall(rb"device poa ([0-9.]+) s / align "
                                          rb"([0-9.]+) s", out.stderr)]
-        two = reads_on_two_contigs(paths[1])
+        two = reads_on_two_contigs(paths_fo[1])
         emit("fleet", part="wrapper_split", rc=out.returncode,
-             identical=out.stdout == whole, split_bytes=split,
+             contigs=FAILOVER_CONTIGS, identical=out.stdout == whole_fo,
+             split_bytes=split,
              chunks=int(chunks[0]) if chunks else None, chunk_device=device,
-             reads_on_two_contigs=two, wall_s=round(wall_w, 3),
-             routed_wall_s=round(wall_a, 3))
-        if out.returncode != 0 or out.stdout != whole or chunks != [b"2"] \
+             reads_on_two_contigs=two, wall_s=round(wall_w, 3))
+        if out.returncode != 0 or out.stdout != whole_fo \
+                or chunks != [b"2"] \
                 or len(device) != 2 or two != 0 \
                 or any(d["poa_s"] <= 0 or d["align_s"] <= 0
                        for d in device):
@@ -2579,8 +2663,10 @@ def fleet_phase(cpu, work, data, truth, threads) -> None:
                                f"{two} reads on two contigs: "
                                f"{out.stderr[-2000:]}")
 
-        # ---- h: the wrapper against the router, which scatters; then the
-        # same invocation again, answered by the backends' journals
+        # ---- h: the wrapper against the router on the whole job, two
+        # chunks of two contigs (the chunk size of the larger contig
+        # pair), which it scatters; then the same invocation again,
+        # answered by the backends' journals
         def done_counts():
             return {sock: client.metrics(sock)["snapshot"]["counters"]
                     for sock in (sa, sb)}
@@ -2589,7 +2675,10 @@ def fleet_phase(cpu, work, data, truth, threads) -> None:
             return sum(after[k].get(name, 0) - before[k].get(name, 0)
                        for k in after)
 
-        sargs = ["--server", rsock, *wargs]
+        lens = [len(q) for _, q in fasta_records(read_bytes(paths[2]))]
+        sargs = ["--server", rsock, "--split",
+                 str(max(lens[0] + lens[1], lens[2] + lens[3])), *flags,
+                 *paths]
         c0 = done_counts()
         out, wall_s = run_wrapper(work, sargs, base, "wrapper_served")
         c1 = done_counts()
@@ -3259,13 +3348,197 @@ def map_rounds(cli, cpu, work, data, reads, draft, truth, threads, dev,
     return {"seed": seed, "launches": main["launches"]}
 
 
+# ---------------------------------------------------------------------------
+# lockstep: windows past the whole-window POA kernel's caps (-w 1000)
+# ---------------------------------------------------------------------------
+
+#: the lockstep phase's window length: its caps (V 4096, LP 2048) are past
+#: the whole-window kernel's, so every megabatch takes the lockstep engine
+LOCKSTEP_W = 1000
+
+
+def round_check(arrs, v: int, l: int, wb: int, dev, p: int = 16,
+                k: int = 128) -> dict:
+    """One round through the lockstep kernel (median of 5 CUDA-event
+    runs after a warm call) and its plain version on the card: lanes
+    whose node or seq tape differ, max |difference|, both times, the
+    DP cells the round needs (each lane's ranks x columns), its real
+    pred rows and the bound."""
+    import numpy as np
+    import torch
+    from racon_tpu_torch.cuda import poa_lockstep as pl
+
+    kin = [torch.from_numpy(a).to(dev) for a in arrs]
+    kw = dict(v=v, l=l, p=p, k=k, wb=wb, match=5, mismatch=-4, gap=-8)
+    out, ref, ms, plain_ms = timed_pair(
+        lambda: pl.poa_round(*kin, **kw),
+        lambda: pl.poa_round_reference(*kin, **kw))
+    diff = torch.stack([(o.long() - r.long()).abs().amax(1)
+                        for o, r in zip(out, ref)]).amax(0)
+    ranks = np.minimum(arrs[2], v)
+    cols = pl.columns(l, wb)
+    cells = int(ranks.sum()) * cols
+    live = np.arange(v)[None, :] < ranks[:, None]
+    pred_rows = int(((arrs[1] >= 0) & live[:, :, None]).sum())
+    bms, by = bound(nbytes(*kin), nbytes(*out),
+                    *lockstep_ops(cells, pred_rows, cols))
+    return {"v": v, "l": l, "wb": wb, "cols": cols, "lanes": len(ranks),
+            "mismatches": int((diff > 0).sum()),
+            "max_abs_err": int(diff.max()), "kernel_ms": round(ms, 4),
+            "plain_ms": round(plain_ms, 1), "cells": cells,
+            "pred_rows": pred_rows, "bound_ms": bms, "bound_by": by}
+
+
+def lockstep_check(region, dev, threads) -> dict:
+    """The lockstep kernel against its plain version on the card: three
+    rounds (first, middle, last) of 8 real -w 1000 windows of the region
+    (spread over depth), at the auto band (wb 512 for layers past 1,024)
+    and with -b (wb 256); the middle auto round at the kernel's wider
+    builds (bands of 1,024-4,096 columns, and 1,025 columns unbanded);
+    every round of the tiny windows at caps that take the unbanded
+    kernel (l_b 128); a constructed round whose preds lag past the
+    band's reach (wb 32).  Node and seq tapes must agree exactly."""
+    from racon_tpu_torch.core.polisher import PolisherType, create_polisher
+    from racon_tpu_torch.core.window import WindowType
+    from racon_tpu_torch.cuda.poa import CudaPoaBatchEngine
+    import numpy as np
+    from racon_tpu_torch.tools.lockstep_rounds import (capture_rounds,
+                                                       lag_round,
+                                                       max_band_lag, widen)
+
+    pol = create_polisher(*region, PolisherType.kC, LOCKSTEP_W, 10.0, 0.3,
+                          True, 5, -4, -8, threads)
+    pol.initialize()
+    wins = [w for w in pol.windows if len(w.sequences) >= 3]
+    pol.close()
+    wins = [wins[i] for i in plain_subset(wins, 8)]
+    res = {"windows": len(wins),
+           "depths": [len(w.sequences) - 1 for w in wins]}
+    rows, captured = [], {}
+    for name, banded in (("auto", False), ("b", True)):
+        eng = CudaPoaBatchEngine(5, -4, -8, device=dev, vcap=4096,
+                                 lcap=2048, banded=banded)
+        n = max(len(eng._order_layers(w)) for w in wins)
+        captured[name] = capture_rounds(eng, wins, {0, n // 2, n - 1})
+        res[name] = [dict(round=d, **round_check(a, v, l, wb, dev))
+                     for d, a, v, l, wb in captured[name]]
+        rows += res[name]
+    # the kernel's wider builds (4, 8 and 16 columns a thread): the
+    # middle auto round widened to the layer buckets of longer windows
+    # (bands of 1,024, 2,048 and 4,096 columns: -w above 1,024, 2,048
+    # and 4,096), and its lanes of layers up to 1,024 bases unbanded
+    # (1,025 columns)
+    d, a, v, _, _ = captured["auto"][1]
+    res["wide"] = [dict(round=d, **round_check(widen(a, lw), v, lw, ww,
+                                               dev))
+                   for lw, ww in ((4096, 1024), (8192, 2048),
+                                  (16384, 4096))]
+    short = a[5] <= 1024
+    if not short.any():
+        raise RuntimeError("the middle round has no layer of 1,024 bases")
+    a = [np.ascontiguousarray(x[short]) for x in a]
+    a[4] = np.ascontiguousarray(a[4][:, :1024])
+    res["wide"].append(dict(round=d, **round_check(a, v, 1024, 0, dev)))
+    rows += res["wide"]
+    eng = CudaPoaBatchEngine(5, -4, -8, device=dev, vcap=512, lcap=256)
+    tiny = capture_rounds(eng, tiny_windows(random.Random(3),
+                                            WindowType.TGS), None)
+    res["tiny_unbanded"] = [dict(round=d, **round_check(a, v, l, wb, dev))
+                            for d, a, v, l, wb in tiny]
+    if any((r["l"], r["wb"]) != (128, 0) for r in res["tiny_unbanded"]):
+        raise RuntimeError("a tiny round missed the unbanded kernel")
+    arrs, v, l, p, k = lag_round()
+    lag = max_band_lag(arrs, 32)
+    res["lag_drop"] = {"max_lag_quanta": lag,
+                       **round_check(arrs, v, l, 32, dev, p, k)}
+    if lag < 5:
+        raise RuntimeError("the lag round has no pred past the band")
+    rows += res["tiny_unbanded"] + [res["lag_drop"]]
+    res["mismatches"] = sum(r["mismatches"] for r in rows)
+    res["max_abs_err"] = max(r["max_abs_err"] for r in rows)
+    auto = res["auto"]
+    res["auto_kernel_ms"] = round(sum(r["kernel_ms"] for r in auto), 4)
+    res["auto_plain_ms"] = round(sum(r["plain_ms"] for r in auto), 1)
+    res["auto_bound_ms"] = sum(r["bound_ms"] for r in auto)
+    res["auto_bound_by"] = max(auto, key=lambda r: r["bound_ms"])[
+        "bound_by"]
+    return res
+
+
+def polish_w1000(cli, cpu, work, data, inputs, truth, threads) -> dict:
+    """The port's CLI at -w 1000, staged, all on the card, cache off, on
+    the first Mb of the set (the whole set took 210.6 s, past the
+    phase's budget), at the auto band, then with -b.  Each run's wall,
+    stage walls, launches (the lockstep kernel's > 0, the whole-window
+    kernel's 0), lockstep rounds and phase walls, rejects by code, the
+    kernel's CUDA-event ms against its DP cells' bound, and the distance
+    to the cut's truth (<= draft / 10).  Returns the first run's
+    line."""
+    base = ["-t", str(threads), "-m", "5", "-x", "-4", "-g", "-8", "-c",
+            "1", "--cudaaligner-batches", "1", "-w", str(LOCKSTEP_W)]
+    draft = read_fasta(inputs[2])
+    cut = cut_region(data, os.path.join(work, "region_1mb"),
+                     min(1_000_000, len(draft)))
+    cut_truth = truth_prefix(truth, read_fasta(cut[2]),
+                             len(draft) / len(truth))
+    cut_draft = chunked_distance(read_fasta(cut[2]), cut_truth, cpu)
+    first = None
+    for name, flags in (("first_mb", []), ("first_mb_b", ["-b"])):
+        paths, run_truth, run_draft = list(cut), cut_truth, cut_draft
+        out_path = os.path.join(work, f"w1000_{name}.fasta")
+        with env_set(**STAGED_ENV, RACON_TPU_TORCH_CACHE="0"):
+            pol, wall, launches = counted_polish(
+                cli, base + flags + paths, out_path, lockstep=True)
+        eng = pol.poa_engine
+        d_pol = chunked_distance(read_fasta(out_path), run_truth, cpu)
+        line = {"run": name, "argv": base + flags, "wall_s": round(wall, 3),
+                "stage_walls_s": {k: round(v, 3)
+                                  for k, v in pol.stage_walls.items()},
+                "launches": launches, "lockstep_rounds": eng.n_rounds,
+                "lockstep_phase_s": {k: round(v, 3) for k, v in
+                                     eng.phase_walls.items()},
+                "batch": pol.poa_batch_size,
+                "eligible_windows": pol.poa_eligible_windows,
+                "windows_on_kernel": eng.windows_on_kernel,
+                "rejected": {k: v for k, v in pol.poa_reject_counts.items()
+                             if v},
+                "skipped_layers": eng.n_skipped_layers,
+                "kernel_ms": round(eng.kernel_ms, 3), "dp_cells": eng.cells,
+                "main_path_bound_ms": bound(
+                    0, 0, *lockstep_ops(eng.cells))[0],
+                "draft_distance": run_draft, "polished_distance": d_pol}
+        emit("polish_w1000", **line)
+        if launches["poa_lockstep"] <= 0 or eng.n_rounds <= 0:
+            raise RuntimeError(f"polish_w1000 {name}: no lockstep launch")
+        if launches["poa_full"]:
+            raise RuntimeError(f"polish_w1000 {name}: the whole-window "
+                               "kernel ran past its caps")
+        if d_pol > run_draft / 10:
+            raise RuntimeError(f"polish_w1000 {name}: distance {d_pol} > "
+                               f"draft {run_draft} / 10")
+        first = first or line
+    return first
+
+
+def lockstep_phase(cli, cpu, work, data, region, dev, inputs, truth,
+                   threads) -> tuple:
+    """lockstep_check, then polish_w1000; returns both lines."""
+    lcheck = lockstep_check(region, dev, threads)
+    emit("lockstep_check", **lcheck)
+    if lcheck["mismatches"]:
+        raise RuntimeError(f"the lockstep kernel disagrees with its plain "
+                           f"version on {lcheck['mismatches']} lane(s)")
+    return lcheck, polish_w1000(cli, cpu, work, data, inputs, truth,
+                                threads)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--genome-len", type=int, default=4_641_652)
     ap.add_argument("--threads", type=int, default=os.cpu_count() or 8)
     ap.add_argument("--only", choices=["band", "wfa", "default", "traced",
                                        "map", "cache", "fusion", "serve",
-                                       "fleet"],
+                                       "fleet", "lockstep"],
                     default=None,
                     help="band / wfa: env, build, dataset, align_check and "
                     "band_card / wfa_card only; default: env, build, "
@@ -3278,7 +3551,9 @@ def main(argv=None) -> int:
                     "and serve; fleet: env, build, dataset and fleet (the "
                     "router, shards, failover, ranks, scrape, the wrapper "
                     "split and served, inspect --fleet, top --fleet and "
-                    "explain); then exit 0 without the result line")
+                    "explain); lockstep: env, build, dataset, "
+                    "lockstep_check and polish_w1000; then exit 0 without "
+                    "the result line")
     ap.add_argument("--keep", default=None,
                     help="directory to copy the traced runs' traces and "
                     "reports to (default: none kept)")
@@ -3361,7 +3636,7 @@ def main(argv=None) -> int:
                    "-8", "-c", "1", "--cudaaligner-batches", "1", reads,
                    paf, draft]
     out_path = os.path.join(work, "polished.fasta")
-    if args.only in (None, "default", "map", "cache", "fleet"):
+    if args.only in (None, "default", "map", "cache", "fleet", "lockstep"):
         truth = read_fasta(os.path.join(data, "genome.fasta"))
         d_draft = chunked_distance(read_fasta(draft), truth, cpu)
     if args.only is not None:
@@ -3380,6 +3655,9 @@ def main(argv=None) -> int:
             fusion_phase(work, data, args.threads)
         elif args.only == "fleet":
             fleet_phase(cpu, work, data, truth, args.threads)
+        elif args.only == "lockstep":
+            lockstep_phase(cli, cpu, work, data, region, dev,
+                           [reads, paf, draft], truth, args.threads)
         elif args.only == "serve":
             with env_set(**STAGED_ENV):
                 pol, wall, launches = counted_polish(cli, argv_polish,
@@ -3467,11 +3745,14 @@ def main(argv=None) -> int:
                           polisher.align_kernel_ms.items()},
          align_band_phases=cycle_split(polisher.align_cycles["align_band"]),
          align_wfa_phases=wfa_split(polisher.align_cycles["align_wfa"]),
-         card_states=polisher.card_states,
+         card_states=polisher.card_states, lockstep_rounds=eng.n_rounds,
          draft_distance=d_draft, polished_distance=d_pol)
     for name, n in launches.items():
         if n <= 0:
             raise RuntimeError(f"the main path launched no {name} kernel")
+    if eng.n_rounds:
+        raise RuntimeError(f"the -w 500 polish ran {eng.n_rounds} lockstep "
+                           "rounds")
     if fallthrough > 0.10 * max(1, polisher.align_eligible):
         raise RuntimeError(f"{fallthrough} of {polisher.align_eligible} "
                            "device-eligible overlaps fell through to the "
@@ -3485,6 +3766,11 @@ def main(argv=None) -> int:
     # ---- traced (the staged path again, traced) -------------------------
     traced_phase(cli, work, argv_polish, out_path, wall, args.keep)
     long_cap_phase(cli, work, args.threads)
+
+    # ---- lockstep_check, polish_w1000 (windows past the whole-window
+    # kernel's caps: the lockstep engine, counted) ----------------------
+    lcheck, lock = lockstep_phase(cli, cpu, work, data, region, dev,
+                                  [reads, paf, draft], truth, args.threads)
 
     # ---- fusion (the device executor across two tenants), then the
     # cache's persistent tier on fusion's first cut ---------------------
@@ -3522,7 +3808,8 @@ def main(argv=None) -> int:
 
     # ---- kernels ---------------------------------------------------------
     emit("kernels", run_s=round(time.perf_counter() - t_run, 3),
-         status={name: "ok" for name in mapped["launches"]})
+         status={name: "ok" for name in [*mapped["launches"],
+                                          "poa_lockstep"]})
     if args.work is None:
         shutil.rmtree(work)
     wfa, band, seed = acheck["wfa"], acheck["band"], mapped["seed"]
@@ -3559,7 +3846,15 @@ def main(argv=None) -> int:
         "launches": mapped["launches"]["seed_words"],
         "max_abs_err": seed["max_abs_err"], "ms": seed["kernel_ms"],
         "plain_ms": seed["plain_ms"], "bound_ms": seed["bound_ms"],
-        "bound_by": seed["bound_by"], "library_ms": seed["library_ms"]}]}))
+        "bound_by": seed["bound_by"], "library_ms": seed["library_ms"]}, {
+        "name": "poa_lockstep", "route": "cuda",
+        "source": "racon_tpu_torch/cuda/csrc/poa_lockstep.cu",
+        "replaces": "racon_tpu/tpu/poa.py:178",
+        "launches": lock["launches"]["poa_lockstep"],
+        "max_abs_err": lcheck["max_abs_err"],
+        "ms": lcheck["auto_kernel_ms"], "plain_ms": lcheck["auto_plain_ms"],
+        "bound_ms": lcheck["auto_bound_ms"],
+        "bound_by": lcheck["auto_bound_by"], "library_ms": None}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

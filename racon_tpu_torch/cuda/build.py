@@ -30,7 +30,8 @@ ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 
 #: kernel sources, by library name
 SOURCES = {"poa_full": "poa_full.cu", "align_wfa": "align_wfa.cu",
-           "align_band": "align_band.cu", "seed_words": "seed_words.cu"}
+           "align_band": "align_band.cu", "seed_words": "seed_words.cu",
+           "poa_lockstep": "poa_lockstep.cu"}
 
 _VP, _I = ctypes.c_void_p, ctypes.c_int
 #: argument types of each library's ``<name>_launch`` (pointers and the
@@ -40,6 +41,7 @@ SIGNATURES = {
     "align_wfa": [_VP] * 9 + [_I] * 5 + [_VP],
     "align_band": [_VP] * 9 + [_I] * 7 + [_VP],
     "seed_words": [_VP] * 3 + [ctypes.c_longlong, _I, _VP],
+    "poa_lockstep": [_VP] * 10 + [_I] * 9 + [_VP],
 }
 
 #: other C functions of a library: name -> (argument types, result)

@@ -193,9 +193,9 @@ class _Unit:
     batch, fused whole (never split) into a shared dispatch."""
 
     __slots__ = ("kind", "tenant", "payload", "size", "cap", "util",
-                 "device", "d1", "size_at", "t_submit", "done", "fused",
-                 "lo", "hi", "retry", "fuse_dispatch", "flow_id", "jobs",
-                 "src", "share")
+                 "device", "d1", "size_at", "pool", "t_submit", "done",
+                 "fused", "lo", "hi", "retry", "fuse_dispatch", "flow_id",
+                 "jobs", "src", "share")
 
     def __init__(self, kind, tenant, payload, size, cap, util=None,
                  device=None):
@@ -208,6 +208,7 @@ class _Unit:
         self.device = device
         self.d1 = 0                 # POA: the windows' depth cap
         self.size_at = None         # POA: depth -> the polisher's size
+        self.pool = None            # POA: the lockstep engine's pool
         self.t_submit = _mono()
         self.done = threading.Event()
         self.fused = None           # _FusedDispatch once dispatched
@@ -266,11 +267,13 @@ class PoaEngineHandle(PoaCounters):
     brought back, so another tenant's launches never show here.
 
     ``cap`` is the submitter's default batch size, ``util`` the
-    polisher's ``DeviceUtil`` and ``size_at(d1)`` its megabatch size
-    at depth cap ``d1`` (the fused-batch memory bound)."""
+    polisher's ``DeviceUtil``, ``size_at(d1)`` its megabatch size
+    at depth cap ``d1`` (the fused-batch memory bound) and ``pool`` its
+    thread pool, over which a lockstep batch's per-window host calls
+    run."""
 
     def __init__(self, executor, engine, tenant, cap, util=None,
-                 size_at=None):
+                 size_at=None, pool=None):
         super().__init__()
         self._ex = executor
         self._eng = engine
@@ -278,6 +281,7 @@ class PoaEngineHandle(PoaCounters):
         self.cap = max(0, int(cap))
         self.util = util
         self.size_at = size_at
+        self.pool = pool
         #: the engine configuration: the result cache's device-space
         #: key (cache/keying.poa_key)
         self.cfg_key = None
@@ -291,6 +295,12 @@ class PoaEngineHandle(PoaCounters):
 
     def fits(self, windows) -> bool:
         return self._eng.fits(windows)
+
+    def fits_depth(self, d1: int) -> bool:
+        return self._eng.fits_depth(d1)
+
+    def lockstep_window_bytes(self) -> int:
+        return self._eng.lockstep_window_bytes()
 
     def consensus_batch_async(self, windows, trim, cap: int = 0):
         """The engine's call through the executor; ``cap`` is the batch
@@ -361,7 +371,7 @@ class DeviceExecutor:
 
     def poa_handle(self, match, mismatch, gap, vcap, pcap, lcap,
                    max_depth, banded, device, tenant=None, cap=0,
-                   util=None, size_at=None) -> PoaEngineHandle:
+                   util=None, size_at=None, pool=None) -> PoaEngineHandle:
         """A handle on the shared engine of this configuration."""
         device = torch.device(device)
         cfg = (match, mismatch, gap, vcap, pcap, lcap, max_depth,
@@ -375,7 +385,7 @@ class DeviceExecutor:
                                            device)
                 self._engines[key] = engine
         handle = PoaEngineHandle(self, engine, tenant, cap, util=util,
-                                 size_at=size_at)
+                                 size_at=size_at, pool=pool)
         handle.cfg_key = cfg
         return handle
 
@@ -475,20 +485,25 @@ class DeviceExecutor:
 
     def _submit_poa_raw(self, handle: PoaEngineHandle, windows, trim, cap):
         engine = handle._eng
+        # the engine picks the whole-window kernel or the lockstep engine
+        # (which runs here, at dispatch), fused or not
         if not self._fusion_active():
-            return engine.consensus_batch_async(windows, trim,
-                                                util=handle.util)
+            return engine.consensus_batch_async(
+                windows, trim, util=handle.util, pool=handle.pool)
         key = ("poa", id(engine), bool(trim))
         unit = _Unit("poa", handle.tenant, list(windows), len(windows),
                      cap or handle.cap, handle.util, engine.device)
         unit.d1 = engine.depth_cap(windows)
         unit.size_at = handle.size_at
+        unit.pool = handle.pool
         self._tag_unit(unit)
         unit.retry = lambda u: engine.consensus_batch_async(
-            u.payload, trim, util=_Lanes([u.util, DEVICE_UTIL]))
+            u.payload, trim, util=_Lanes([u.util, DEVICE_UTIL]),
+            pool=u.pool)
         self._enqueue(key, unit, lambda units, lanes: (
             engine.consensus_batch_async(
-                [w for u in units for w in u.payload], trim, util=lanes),
+                [w for u in units for w in u.payload], trim, util=lanes,
+                pool=units[0].pool),
             sum(u.size for u in units)))
         return self._unit_collect(unit)
 

@@ -1,4 +1,5 @@
-// POA graph engine used by the single-window CPU entry point (poa.cpp).
+// POA graph engine shared by the single-window CPU entry point
+// (poa.cpp) and the lockstep batch API (poa_batch.cpp).
 #pragma once
 
 #include <algorithm>

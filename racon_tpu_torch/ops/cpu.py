@@ -3,8 +3,9 @@
 The shared library provides the edlib-equivalent global aligner (the
 breaking-point re-alignment of overlaps the card does not align), the
 breaking-point walk over an alignment's runs and the CIGAR parse that
-feeds it, and the spoa-equivalent POA consensus engine (windows the
-CUDA kernel rejects).
+feeds it, the spoa-equivalent POA consensus engine (windows the CUDA
+kernel rejects), and the lockstep POA engine's host graphs
+(``poa_batch.cpp``, bound in ``cuda/poa_lockstep.py``).
 Calls release the GIL, so the polisher's thread pool runs them in
 parallel.
 
@@ -26,7 +27,8 @@ _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _NATIVE_DIR = os.path.join(_PKG_DIR, "native")
 _BUILD_DIR = os.path.join(_PKG_DIR, "build", "native")
 _LIB_PATH = os.path.join(_BUILD_DIR, "libracon_native.so")
-_SOURCES = ("align.cpp", "poa.cpp", "poa_graph.hpp", "Makefile")
+_SOURCES = ("align.cpp", "poa.cpp", "poa_batch.cpp", "poa_graph.hpp",
+            "Makefile")
 
 _lib = None
 _lib_lock = threading.Lock()

@@ -1,0 +1,108 @@
+"""Rounds of the lockstep POA engine, as arrays: captured from real
+windows, and one constructed to drive the banded kernel's lag drop.
+
+``capture_rounds`` runs an engine's lockstep batch and keeps a copy of
+the arrays each round's launch received (at the round's shape), so the
+kernel, its plain version and the JAX kernels can be held against each
+other on real exports; ``widen`` puts such a round at a wider layer
+bucket, so real graphs reach the kernel's wider builds.  ``lag_round`` builds a round whose extra
+in-edges reach up to ``k`` ranks back: at a narrow band (wb 32, band
+quantum 8) such a pred's band lags 5 or more quanta, a path real
+windows at the engine's bands (256 and up) seldom take, where the
+kernel reads the pred row as -inf.
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional, Set, Tuple
+
+import numpy as np
+
+Round = Tuple[int, List[np.ndarray], int, int, int]
+
+
+def capture_rounds(engine, windows, keep: Optional[Set[int]] = None
+                   ) -> List[Round]:
+    """Run ``engine``'s lockstep batch on ``windows`` and return a copy
+    of each round of ``keep`` (round indices; None: every round): (round,
+    [bases, preds, nrows, sinks, seq, slen] at the round's shape, v_b,
+    l_b, wb)."""
+    rounds = []
+    orig = engine._dispatch
+
+    def spy(bases, preds, nrows, sinks, seq_arr, slen, util, st):
+        v_b, l_b, wb = engine.round_shape(nrows, slen)
+        if keep is None or st.rounds in keep:
+            arrs = [np.ascontiguousarray(a).copy() for a in (
+                bases[:, :v_b], preds[:, :v_b], nrows, sinks[:, :v_b],
+                seq_arr[:, :l_b], slen)]
+            rounds.append((st.rounds, arrs, v_b, l_b, wb))
+        return orig(bases, preds, nrows, sinks, seq_arr, slen, util, st)
+
+    engine._dispatch = spy
+    try:
+        engine.lockstep_batch(windows, True)
+    finally:
+        del engine._dispatch
+    return rounds
+
+
+def widen(arrs, l: int) -> List[np.ndarray]:
+    """A round's arrays with ``seq`` padded to ``l`` columns: the same
+    graphs and layers at a wider layer bucket, as a longer window's
+    round would give them (its band, ``poa_band_cols(l)``, is wider
+    too)."""
+    seq = arrs[4]
+    if seq.shape[1] > l:
+        raise ValueError(f"seq is {seq.shape[1]} columns, past {l}")
+    wide = np.zeros((seq.shape[0], l), np.uint8)
+    wide[:, :seq.shape[1]] = seq
+    return [*arrs[:4], wide, arrs[5]]
+
+
+def lag_round(seed: int = 5, b: int = 3, v: int = 256, l: int = 256,
+              p: int = 8, k: int = 64):
+    """A constructed round: a chain of ``nrows`` ranks per lane, each
+    with up to two extra preds 2..k ranks back, two sinks, a random
+    layer.  Returns ([bases, preds, nrows, sinks, seq, slen], v, l, p,
+    k)."""
+    rng = np.random.default_rng(seed)
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    bases = rng.choice(acgt, (b, v))
+    preds = np.full((b, v, p), -1, np.int16)
+    nrows = rng.integers(v // 2, v, b).astype(np.int32)
+    sinks = np.zeros((b, v), np.uint8)
+    for i in range(b):
+        preds[i, 0, 0] = 0
+        for r in range(1, int(nrows[i])):
+            preds[i, r, 0] = r
+            for e in range(int(rng.integers(0, 3))):
+                back = int(rng.integers(2, k + 1))
+                if r + 1 - back >= 1:
+                    preds[i, r, 1 + e] = r + 1 - back
+        sinks[i, nrows[i] - 1] = 1
+        sinks[i, rng.integers(0, nrows[i])] = 1
+    slen = rng.integers(l // 2, l + 1, b).astype(np.int32)
+    seq = np.zeros((b, l), np.uint8)
+    for i in range(b):
+        seq[i, :slen[i]] = rng.choice(acgt, slen[i])
+    return [bases, preds, nrows, sinks, seq, slen], v, l, p, k
+
+
+def max_band_lag(arrs, wb: int) -> int:
+    """The largest band lag, in quanta, of a real pred row of a round at
+    band ``wb`` (the banded kernel's dq)."""
+    _, preds, nrows, _, _, slen = arrs
+    q, lag = wb // 4, 0
+    for i in range(preds.shape[0]):
+        nr, sl = max(int(nrows[i]), 1), int(slen[i])
+        smax = (max(sl + 1 - wb, 0) + q - 1) // q
+
+        def start(r):
+            return min(max(((r * sl) // nr - wb // 2) // q, 0), smax)
+
+        for r in range(1, int(nrows[i]) + 1):
+            for pid in preds[i, r - 1]:
+                if pid > 0:
+                    lag = max(lag, start(r) - start(int(pid)))
+    return lag

@@ -74,7 +74,7 @@ class StubEngine:
     def depth_cap(self, windows):
         return 8
 
-    def consensus_batch_async(self, windows, trim, util=None):
+    def consensus_batch_async(self, windows, trim, util=None, pool=None):
         windows = list(windows)
         if self.poison in windows and self.poison_at == "dispatch":
             raise RuntimeError("poisoned window at dispatch")
