@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--genome-len N] [--threads T] [--work DIR]
                           [--only band|wfa|default|traced|map|cache|
-                                  fusion|serve|fleet|lockstep]
+                                  fusion|serve|fleet|lockstep|scan]
                           [--keep DIR]
 
 Needs one CUDA card.  Phases, one JSON line each:
@@ -104,12 +104,41 @@ Needs one CUDA card.  Phases, one JSON line each:
                 (median of 5), the plain ms, the DP cells and the bound;
    polish_w1000 the port's CLI at -w 1000 (caps V 4096, LP 2048: every
                 megabatch takes the lockstep engine), staged, all on the
-                card, cache off, on the first 1 Mb, then with -b: walls,
-                stage walls, lockstep rounds and
+                card, cache off, on the first 500 kb, then with -b:
+                walls, stage walls, lockstep rounds and
                 phase walls, launches (the lockstep kernel's > 0, the
                 whole-window kernel's 0), rejects by code (vcap, pcap,
                 kcap), distance to the truth <= draft / 10; phase 6's
                 -w 500 polish must have run 0 lockstep rounds;
+   scan_check   the scan ladder's two kernels (align_scan.cu; the JAX
+                package's scan kernels, its device path off a TPU)
+                against their plain versions on the card: the banded
+                kernel at the ladder's rungs (hw 512 on 6 region pairs
+                of at most 4,096 bases spread over length, bucket 8,192;
+                hw 2,048 on the 2 longest and 2 of those and hw 8,192 on
+                the 6, bucket 16,384) and the full kernel (the 6, bucket
+                8,192), at their real lengths, the lanes padded to a
+                power of two as the ladder pads them, plus the edge
+                pairs of tools/scan_pairs.py (bucket 1,024; hw 0, 7 and
+                512); op tapes must agree exactly, some lane must run
+                past its band; per row the CUDA-event ms (median of 5),
+                the plain ms, the cells, the bound and the direction
+                tape's bytes;
+   polish_scan  the CLI (-c 1 --cudaaligner-batches 1) on the first Mb
+                with RACON_TPU_TORCH_SCAN_ALIGN=1 and the align stage
+                all on the card: distance to the cut's truth <= draft /
+                10, stage walls, launches of both scan kernels (when the
+                set sends no pair to the full kernel, a short-pair
+                bucket through ``CudaBatchAligner`` does, a path of its
+                own with its counts set to 0 just before it: 8 region
+                pairs cut to 1,500 bases and 8 unrelated ones, every
+                distance the native engine's; the kernels line's
+                align_scan_full launches are then that run's), no WFA
+                or band launch, the main path's cells and bound;
+   polish_portable  the same CLI with RACON_TPU_TORCH_PORTABLE=1 on the
+                first 250 kb, both stages all on the card: scan and
+                lockstep launches together, no whole-window POA launch,
+                distance <= draft / 10;
    polish_default  the same CLI at the port's defaults (streaming
                 pipeline, device/CPU splits of both stages), twice, in
                 a fresh calibration store under the work directory:
@@ -207,12 +236,13 @@ Needs one CUDA card.  Phases, one JSON line each:
                 first two records, each chunk's device poa and align
                 seconds from its stderr > 0, no read with overlaps on
                 two contigs, the wall; ``wrapper_served``, the wrapper
-                with ``--server <router>`` on the whole job,
-                ``--split`` at the larger contig pair's bytes: the
-                router scatters it (shards=auto, two winners on its
-                flight), the bytes equal, then the same invocation
-                again, answered by the backends' journals (0 jobs run, 2
-                dedup hits) with the same bytes; ``inspect_fleet``,
+                with ``--server <router>`` on the failover part's
+                two-contig job, ``--split`` at the larger contig's
+                bytes: the router scatters it (shards=auto, two winners
+                on its flight), the bytes equal the routed job's first
+                two records, then the same invocation again, answered by
+                the backends' journals (0 jobs run, 2 dedup hits) with
+                the same bytes; ``inspect_fleet``,
                 ``inspect --fleet <failover router> --job-key
                 fleet-failover --json --trace-out``: a complete lineage
                 (the root, both shard keys, the failover edge of shard
@@ -262,7 +292,10 @@ Needs one CUDA card.  Phases, one JSON line each:
                 seed-word kernel's in map_rounds' first-Mb --rounds 1
                 run, the lockstep kernel's in polish_w1000's first
                 run; its ms, plain ms and bound summed over
-                lockstep_check's three auto-band rounds).
+                lockstep_check's three auto-band rounds; the scan
+                kernels' in polish_scan, their ms, plain ms and bound
+                from scan_check's hw 2,048 row and its full-kernel
+                region row).
 
 Then the card's line as nvidia-smi prints it and the result line.  Any
 failure raises and the script exits non-zero without a result line.
@@ -277,7 +310,8 @@ persistent part (against the cut's own cache-off run) and
 twice; the same bytes), ``--only fusion`` phases 1-3 and fusion,
 ``--only serve`` phases 1-3, the staged polish and serve, ``--only
 fleet`` phases 1-3 and fleet, ``--only lockstep`` phases 1-3,
-lockstep_check and polish_w1000.  ``--keep DIR`` copies the
+lockstep_check and polish_w1000, ``--only scan`` phases 1-3,
+scan_check, polish_scan and polish_portable.  ``--keep DIR`` copies the
 traced runs' traces and reports to DIR (open a trace in Perfetto).  The
 calibration store is off (``RACON_TPU_TORCH_CACHE_DIR=""``) outside
 polish_default.  The result cache is on (the default), and every
@@ -1363,10 +1397,13 @@ def chunk_rates(chunks) -> dict:
     return out
 
 
-def launch_counts(mapped: bool = False, lockstep: bool = False) -> dict:
+def launch_counts(mapped: bool = False, lockstep: bool = False,
+                  scan: bool = False) -> dict:
     """Every kernel's launch count now (``seed_words`` too when the run
     maps its overlaps, ``poa_lockstep`` when its windows are past the
-    whole-window POA kernel's caps, ``-w 1000``)."""
+    whole-window POA kernel's caps, ``-w 1000``, or under
+    RACON_TPU_TORCH_PORTABLE, ``align_scan_full`` and
+    ``align_scan_band`` under the scan ladder's switches)."""
     from racon_tpu_torch.cuda import build
 
     out = build.launch_counts()
@@ -1374,11 +1411,14 @@ def launch_counts(mapped: bool = False, lockstep: bool = False) -> dict:
         del out["seed_words"]
     if not lockstep:
         del out["poa_lockstep"]
+    if not scan:
+        del out["align_scan_full"], out["align_scan_band"]
     return out
 
 
 def counted_polish(cli, argv, out_path, mapped: bool = False,
-                   cold: bool = True, lockstep: bool = False):
+                   cold: bool = True, lockstep: bool = False,
+                   scan: bool = False):
     """One CLI polish with every kernel's launch count set to 0 just
     before it, from an empty in-process result cache unless ``cold`` is
     False; returns (polisher, wall s, launches)."""
@@ -1394,7 +1434,7 @@ def counted_polish(cli, argv, out_path, mapped: bool = False,
         polisher = cli.main(argv, out=out)
     wall = time.perf_counter() - t0
     polisher.card_states = (before, card_state())
-    return polisher, wall, launch_counts(mapped, lockstep)
+    return polisher, wall, launch_counts(mapped, lockstep, scan)
 
 
 #: the staged, all-device path of phase 6 (and of the traced phase)
@@ -2663,9 +2703,9 @@ def fleet_phase(cpu, work, data, truth, threads) -> None:
                                f"{two} reads on two contigs: "
                                f"{out.stderr[-2000:]}")
 
-        # ---- h: the wrapper against the router on the whole job, two
-        # chunks of two contigs (the chunk size of the larger contig
-        # pair), which it scatters; then the same invocation again,
+        # ---- h: the wrapper against the router on the failover part's
+        # two contigs, two chunks of one contig (the chunk size of the
+        # larger one), which it scatters; then the same invocation again,
         # answered by the backends' journals
         def done_counts():
             return {sock: client.metrics(sock)["snapshot"]["counters"]
@@ -2675,10 +2715,8 @@ def fleet_phase(cpu, work, data, truth, threads) -> None:
             return sum(after[k].get(name, 0) - before[k].get(name, 0)
                        for k in after)
 
-        lens = [len(q) for _, q in fasta_records(read_bytes(paths[2]))]
-        sargs = ["--server", rsock, "--split",
-                 str(max(lens[0] + lens[1], lens[2] + lens[3])), *flags,
-                 *paths]
+        sargs = ["--server", rsock, "--split", str(split), *flags,
+                 *paths_fo]
         c0 = done_counts()
         out, wall_s = run_wrapper(work, sargs, base, "wrapper_served")
         c1 = done_counts()
@@ -2697,16 +2735,16 @@ def fleet_phase(cpu, work, data, truth, threads) -> None:
                                                  again.returncode],
              scatter_taken=taken, job_key=wkey,
              shard_keys=scat[-1]["keys"] if scat else None,
-             shard_winners=won, identical=out.stdout == whole,
-             wall_s=round(wall_s, 3),
-             scattered_client_wall_s=round(wall_b, 3),
-             repeat={"identical": again.stdout == whole,
+             shard_winners=won, contigs=FAILOVER_CONTIGS,
+             identical=out.stdout == whole_fo, wall_s=round(wall_s, 3),
+             wrapper_split_wall_s=round(wall_w, 3),
+             repeat={"identical": again.stdout == whole_fo,
                      "wall_s": round(wall_r, 3),
                      "jobs_run": delta(c2, c1, "serve_jobs_completed"),
                      "dedup_hits": delta(c2, c1, "serve_dedup_hits")},
              jobs_run=delta(c1, c0, "serve_jobs_completed"))
         if out.returncode or again.returncode or not taken \
-                or out.stdout != whole or again.stdout != whole \
+                or out.stdout != whole_fo or again.stdout != whole_fo \
                 or won != sorted(scat[-1]["keys"]) \
                 or delta(c2, c1, "serve_jobs_completed") \
                 or delta(c2, c1, "serve_dedup_hits") != 2:
@@ -3355,6 +3393,9 @@ def map_rounds(cli, cpu, work, data, reads, draft, truth, threads, dev,
 #: the lockstep phase's window length: its caps (V 4096, LP 2048) are past
 #: the whole-window kernel's, so every megabatch takes the lockstep engine
 LOCKSTEP_W = 1000
+#: the -w 1000 runs' cut of the draft (at 250 kb the cut's ends weigh
+#: too much: -b wrote 598 against a 4,641 draft)
+W1000_BP = 500_000
 
 
 def round_check(arrs, v: int, l: int, wb: int, dev, p: int = 16,
@@ -3467,8 +3508,9 @@ def lockstep_check(region, dev, threads) -> dict:
 
 def polish_w1000(cli, cpu, work, data, inputs, truth, threads) -> dict:
     """The port's CLI at -w 1000, staged, all on the card, cache off, on
-    the first Mb of the set (the whole set took 210.6 s, past the
-    phase's budget), at the auto band, then with -b.  Each run's wall,
+    the first 500 kb of the set (the whole set took 210.6 s, the first
+    Mb 35-41 s, 33-51 s with -b) at the auto band, then with -b.  Each
+    run's wall,
     stage walls, launches (the lockstep kernel's > 0, the whole-window
     kernel's 0), lockstep rounds and phase walls, rejects by code, the
     kernel's CUDA-event ms against its DP cells' bound, and the distance
@@ -3477,21 +3519,21 @@ def polish_w1000(cli, cpu, work, data, inputs, truth, threads) -> dict:
     base = ["-t", str(threads), "-m", "5", "-x", "-4", "-g", "-8", "-c",
             "1", "--cudaaligner-batches", "1", "-w", str(LOCKSTEP_W)]
     draft = read_fasta(inputs[2])
-    cut = cut_region(data, os.path.join(work, "region_1mb"),
-                     min(1_000_000, len(draft)))
-    cut_truth = truth_prefix(truth, read_fasta(cut[2]),
-                             len(draft) / len(truth))
-    cut_draft = chunked_distance(read_fasta(cut[2]), cut_truth, cpu)
     first = None
-    for name, flags in (("first_mb", []), ("first_mb_b", ["-b"])):
-        paths, run_truth, run_draft = list(cut), cut_truth, cut_draft
+    bp = min(W1000_BP, len(draft))
+    paths = list(cut_region(data, os.path.join(work, f"region_{bp}"), bp))
+    run_truth = truth_prefix(truth, read_fasta(paths[2]),
+                             len(draft) / len(truth))
+    run_draft = chunked_distance(read_fasta(paths[2]), run_truth, cpu)
+    for name, flags in (("first_500kb", []), ("first_500kb_b", ["-b"])):
         out_path = os.path.join(work, f"w1000_{name}.fasta")
         with env_set(**STAGED_ENV, RACON_TPU_TORCH_CACHE="0"):
             pol, wall, launches = counted_polish(
                 cli, base + flags + paths, out_path, lockstep=True)
         eng = pol.poa_engine
         d_pol = chunked_distance(read_fasta(out_path), run_truth, cpu)
-        line = {"run": name, "argv": base + flags, "wall_s": round(wall, 3),
+        line = {"run": name, "bp": bp,
+                "argv": base + flags, "wall_s": round(wall, 3),
                 "stage_walls_s": {k: round(v, 3)
                                   for k, v in pol.stage_walls.items()},
                 "launches": launches, "lockstep_rounds": eng.n_rounds,
@@ -3532,13 +3574,253 @@ def lockstep_phase(cli, cpu, work, data, region, dev, inputs, truth,
                                 threads)
 
 
+# ---------------------------------------------------------------------------
+# the scan ladder (RACON_TPU_TORCH_SCAN_ALIGN / RACON_TPU_TORCH_PORTABLE)
+# ---------------------------------------------------------------------------
+
+# scan full (one unit-cost cell, as OPS_PER_BAND_CELL counts it):
+# substitution compare 1, the diagonal, up and left candidates 3
+# (adds), their mins 2, the 2-bit direction 4 (two compares, two
+# selects) and its packing 2 (shift, or); the boundary cells are the
+# matrix's first row and column, not a per-cell cost
+OPS_PER_SCAN_FULL_CELL = 12
+# scan banded (one slot of a diagonal): the full cell's 12 and the
+# function's own clip of every value to BIG 1
+OPS_PER_SCAN_BAND_CELL = 13
+SCAN_PORTABLE_BP = 250_000
+
+
+def scan_row(qs, ts, lq: int, lt: int, hw: int, dev) -> dict:
+    """One scan kernel launch (hw 0: the full kernel) against its plain
+    version on the card, the lanes padded to a power of two as the
+    ladder pads them: mismatching lanes, max |op difference|, the
+    kernel's ms (median of 5 CUDA-event runs after a warm call), the
+    plain ms, the DP cells it computes (``aligner.kernel_cells``), the
+    bound (the inputs and the op tape against the cells' int32
+    operations), the direction tape's bytes, and the lanes the rung
+    certifies (tape cost <= hw) and those past it."""
+    import numpy as np
+    import torch
+    from racon_tpu_torch.cuda import aligner as al
+
+    bb = al._pow2_batch(len(qs))
+    pad = [b""] * (bb - len(qs))
+    ql = np.array([len(x) for x in qs + pad], np.int32)
+    tl = np.array([len(x) for x in ts + pad], np.int32)
+    kin = [torch.from_numpy(a).to(dev) for a in (
+        al.encode_batch(qs + pad, lq, al.QPAD),
+        al.encode_batch(ts + pad, lt, al.TPAD), ql, tl)]
+    if hw:
+        out, ref, ms, plain_ms = timed_pair(
+            lambda: al.align_banded(*kin, hw),
+            lambda: al.align_banded_plain(*kin, hw))
+    else:
+        out, ref, ms, plain_ms = timed_pair(
+            lambda: al.align_full(*kin), lambda: al.align_full_plain(*kin))
+    diff = (out.long() - ref.long()).abs().amax(1)
+    cells = al.kernel_cells(ql, tl, hw)
+    ops = cells * (OPS_PER_SCAN_BAND_CELL if hw else OPS_PER_SCAN_FULL_CELL)
+    bms, by = bound(nbytes(*kin), nbytes(out), ops)
+    tape = ref.cpu().numpy()[:len(qs)]
+    cost = ((tape != al.OP_STOP) & (tape != al.OP_EQ)).sum(1)
+    return {"hw": hw, "lq": lq, "lt": lt, "lanes": len(qs), "padded": bb,
+            "longest": int(max(ql.max(), tl.max())),
+            "mismatches": int((diff > 0).sum()),
+            "max_abs_err": int(diff.max()), "kernel_ms": round(ms, 4),
+            "plain_ms": round(plain_ms, 1), "cells": cells,
+            "bound_ms": bms, "bound_by": by,
+            "dir_tape_bytes": bb * (lq + lt) * al.packed_width(lt, hw),
+            "certified": int((cost <= hw).sum()) if hw else len(qs),
+            "past_band": int((cost > hw).sum()) if hw else 0}
+
+
+def scan_check(region, dev) -> dict:
+    """The scan kernels against their plain versions on the card: the
+    banded kernel at the ladder's three rungs and the full kernel, on
+    the region's overlap pairs at their real lengths (6 spread over the
+    pairs of at most 4,096 bases, at bucket 8,192 for hw 512 and the
+    full kernel and at 16,384 for hw 8,192; the 2 longest and 2 of the
+    6 at bucket 16,384 for hw 2,048: the plain version's time follows
+    the longest pair's diagonals), and the constructed edge pairs of
+    tools/scan_pairs.py at bucket 1,024 (hw 0, 7 and 512).  Op tapes
+    must agree exactly."""
+    from racon_tpu_torch.cuda.aligner import BAND_LADDER
+    from racon_tpu_torch.tools.scan_pairs import scan_pairs
+
+    pairs = region_pairs(region, 64, 16384)
+    order = sorted(range(len(pairs)), key=lambda k: max(map(len,
+                                                             pairs[k])))
+    short = [k for k in order if max(map(len, pairs[k])) <= 4096]
+    six = spread(short, 6)
+    four = sorted(set(spread(short, 2) + order[-2:]))
+    rows = []
+    narrow, main_rung, wide = BAND_LADDER
+    for hw, idx, bd in ((narrow, six, 8192), (main_rung, four, 16384),
+                        (wide, six, 16384), (0, six, 8192)):
+        qs = [pairs[k][0] for k in idx]
+        ts = [pairs[k][1] for k in idx]
+        rows.append(dict(part="region", **scan_row(qs, ts, bd, bd, hw,
+                                                   dev)))
+    eq, et = scan_pairs(random.Random(11), 600)
+    for hw in (0, 7, 512):
+        rows.append(dict(part="edge", **scan_row(eq, et, 1024, 1024, hw,
+                                                 dev)))
+    band = [r for r in rows if r["hw"]]
+    full = [r for r in rows if not r["hw"]]
+    main = next(r for r in rows if r["hw"] == main_rung)
+    return {"rows": rows, "mismatches": sum(r["mismatches"] for r in rows),
+            "band_max_abs_err": max(r["max_abs_err"] for r in band),
+            "full_max_abs_err": max(r["max_abs_err"] for r in full),
+            "past_band": sum(r["past_band"] for r in band),
+            "band": main, "full": full[0]}
+
+
+def scan_forced_full(region, dev, cpu) -> dict:
+    """A short-pair bucket through ``CudaBatchAligner`` (the batched
+    aligner API): 8 region pairs cut to 1,500 bases and 8 unrelated
+    pairs of 1,500, whose cost passes the 512 rung in a bucket under the
+    next one, so the ladder hands them to the full kernel; every CIGAR's
+    distance must be the native edit distance."""
+    from racon_tpu_torch.cuda import aligner as al
+
+    pairs = region_pairs(region, 16, 16384)
+    qs = [q[:1500] for q, _ in pairs]
+    ts = [t[:1500] for _, t in pairs[:8]] + [t[:1500] for _, t in
+                                             pairs[8:][::-1]]
+    aligner = al.CudaBatchAligner(1536, 1536, len(qs), device=dev)
+    for q, t in zip(qs, ts):
+        if not aligner.add(q, t):
+            raise RuntimeError("scan_forced_full: a pair past 1,536")
+    aligner.align_all()
+    native = [cpu.edit_distance(q, t) for q, t in zip(qs, ts)]
+    bad = int(sum(int(d) != n for d, n in zip(aligner.distances, native)))
+    return {"pairs": len(qs), "native_mismatches": bad,
+            "stats": {k: {"launches": v["launches"],
+                          "kernel_ms": round(v["kernel_ms"], 3),
+                          "cells": v["cells"]}
+                      for k, v in aligner.stats.items()}}
+
+
+def scan_paths(cli, cpu, work, data, inputs, truth, region, dev,
+               threads) -> tuple:
+    """polish_scan, then polish_portable; returns both lines."""
+    from racon_tpu_torch.cuda import build
+
+    base = ["-t", str(threads), "-m", "5", "-x", "-4", "-g", "-8", "-c",
+            "1", "--cudaaligner-batches", "1"]
+    draft = read_fasta(inputs[2])
+    lines = {}
+    for name, bp, env in (
+            ("polish_scan", 1_000_000,
+             {"RACON_TPU_TORCH_SCAN_ALIGN": "1",
+              "RACON_TPU_TORCH_ALIGN_DEVICE_ONLY": "1"}),
+            ("polish_portable", SCAN_PORTABLE_BP,
+             {"RACON_TPU_TORCH_PORTABLE": "1",
+              "RACON_TPU_TORCH_ALIGN_DEVICE_ONLY": "1",
+              "RACON_TPU_TORCH_POA_DEVICE_ONLY": "1"})):
+        cut = cut_region(data, os.path.join(work, f"region_{bp}"),
+                         min(bp, len(draft)))
+        cut_truth = truth_prefix(truth, read_fasta(cut[2]),
+                                 len(draft) / len(truth))
+        cut_draft = chunked_distance(read_fasta(cut[2]), cut_truth, cpu)
+        out_path = os.path.join(work, f"{name}.fasta")
+        portable = name == "polish_portable"
+        with env_set(**env):
+            pol, wall, launches = counted_polish(
+                cli, base + list(cut), out_path, scan=True,
+                lockstep=portable)
+        forced = None
+        if not portable and launches["align_scan_full"] == 0:
+            # the set sent no pair to the full kernel: the batched
+            # aligner's short-pair bucket does, a path of its own, its
+            # counts set to 0 just before it and read just after
+            build.zero_launch_counts()
+            forced = scan_forced_full(region, dev, cpu)
+            forced["launches"] = launch_counts(scan=True)
+            forced["main_path_bound_ms"] = bound(
+                0, 0, forced["stats"].get("align_scan_full", {}).get(
+                    "cells", 0) * OPS_PER_SCAN_FULL_CELL)[0]
+        d_pol = chunked_distance(read_fasta(out_path), cut_truth, cpu)
+        kcells = {k: pol.align_kernel_cells[k]
+                  for k in ("align_scan_band", "align_scan_full")}
+        line = {"bp": min(bp, len(draft)), "argv": base,
+                "env": env, "wall_s": round(wall, 3),
+                "stage_walls_s": {k: round(v, 3)
+                                  for k, v in pol.stage_walls.items()},
+                "launches": launches,
+                "align_dispatches": pol.align_dispatches,
+                "align_kernel_ms": {k: round(v, 3) for k, v in
+                                    pol.align_kernel_ms.items()},
+                "align_cells": kcells,
+                "main_path_bound_ms": {
+                    "align_scan_band": bound(
+                        0, 0, kcells["align_scan_band"]
+                        * OPS_PER_SCAN_BAND_CELL)[0],
+                    "align_scan_full": bound(
+                        0, 0, kcells["align_scan_full"]
+                        * OPS_PER_SCAN_FULL_CELL)[0]},
+                "align_eligible": pol.align_eligible,
+                "align_over_length": pol.align_over_length,
+                "align_cpu_fallthrough": pol.align_cpu_fallthrough,
+                "align_rungs": pol.align_rungs,
+                "poa_rounds": pol.poa_engine.n_rounds,
+                "poa_rejected": {k: v for k, v in
+                                 pol.poa_reject_counts.items() if v},
+                "forced_full": forced, "card_states": pol.card_states,
+                "draft_distance": cut_draft, "polished_distance": d_pol}
+        emit(name, **line)
+        lines[name] = line
+        if d_pol > cut_draft / 10:
+            raise RuntimeError(f"{name}: distance {d_pol} > draft "
+                               f"{cut_draft} / 10")
+        if pol.align_rungs or launches["align_wfa"] \
+                or launches["align_band"]:
+            raise RuntimeError(f"{name}: the default ladder ran: "
+                               f"{pol.align_rungs} {launches}")
+        if launches["align_scan_band"] <= 0:
+            raise RuntimeError(f"{name}: scan launches {launches}")
+        if forced is not None and (
+                forced["launches"]["align_scan_full"] <= 0
+                or any(forced["launches"][k] for k in (
+                    "align_wfa", "align_band", "poa_full"))):
+            raise RuntimeError(f"{name}: the batched aligner's launches "
+                               f"{forced['launches']}")
+        if forced is not None and forced["native_mismatches"]:
+            raise RuntimeError(f"{name}: {forced['native_mismatches']} "
+                               "batched-aligner distance(s) differ from "
+                               "the native engine")
+        if portable and (launches["poa_lockstep"] <= 0
+                         or launches["poa_full"]):
+            raise RuntimeError(f"{name}: POA launches {launches}")
+        if not portable and (launches["poa_full"] <= 0
+                             or pol.poa_engine.n_rounds):
+            raise RuntimeError(f"{name}: POA launches {launches}, "
+                               f"{pol.poa_engine.n_rounds} rounds")
+    return lines["polish_scan"], lines["polish_portable"]
+
+
+def scan_phase(cli, cpu, work, data, region, dev, inputs, truth,
+               threads) -> tuple:
+    """scan_check, then polish_scan and polish_portable; returns the
+    three lines."""
+    scheck = scan_check(region, dev)
+    emit("scan_check", **scheck)
+    if scheck["mismatches"]:
+        raise RuntimeError(f"a scan kernel disagrees with its plain version "
+                           f"on {scheck['mismatches']} lane(s)")
+    if scheck["past_band"] < 1:
+        raise RuntimeError("scan_check ran no lane past its band")
+    return (scheck, *scan_paths(cli, cpu, work, data, inputs, truth, region,
+                                dev, threads))
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--genome-len", type=int, default=4_641_652)
     ap.add_argument("--threads", type=int, default=os.cpu_count() or 8)
     ap.add_argument("--only", choices=["band", "wfa", "default", "traced",
                                        "map", "cache", "fusion", "serve",
-                                       "fleet", "lockstep"],
+                                       "fleet", "lockstep", "scan"],
                     default=None,
                     help="band / wfa: env, build, dataset, align_check and "
                     "band_card / wfa_card only; default: env, build, "
@@ -3552,8 +3834,9 @@ def main(argv=None) -> int:
                     "router, shards, failover, ranks, scrape, the wrapper "
                     "split and served, inspect --fleet, top --fleet and "
                     "explain); lockstep: env, build, dataset, "
-                    "lockstep_check and polish_w1000; then exit 0 without "
-                    "the result line")
+                    "lockstep_check and polish_w1000; scan: env, build, "
+                    "dataset, scan_check, polish_scan and polish_portable; "
+                    "then exit 0 without the result line")
     ap.add_argument("--keep", default=None,
                     help="directory to copy the traced runs' traces and "
                     "reports to (default: none kept)")
@@ -3636,7 +3919,8 @@ def main(argv=None) -> int:
                    "-8", "-c", "1", "--cudaaligner-batches", "1", reads,
                    paf, draft]
     out_path = os.path.join(work, "polished.fasta")
-    if args.only in (None, "default", "map", "cache", "fleet", "lockstep"):
+    if args.only in (None, "default", "map", "cache", "fleet", "lockstep",
+                     "scan"):
         truth = read_fasta(os.path.join(data, "genome.fasta"))
         d_draft = chunked_distance(read_fasta(draft), truth, cpu)
     if args.only is not None:
@@ -3658,6 +3942,9 @@ def main(argv=None) -> int:
         elif args.only == "lockstep":
             lockstep_phase(cli, cpu, work, data, region, dev,
                            [reads, paf, draft], truth, args.threads)
+        elif args.only == "scan":
+            scan_phase(cli, cpu, work, data, region, dev,
+                       [reads, paf, draft], truth, args.threads)
         elif args.only == "serve":
             with env_set(**STAGED_ENV):
                 pol, wall, launches = counted_polish(cli, argv_polish,
@@ -3772,6 +4059,12 @@ def main(argv=None) -> int:
     lcheck, lock = lockstep_phase(cli, cpu, work, data, region, dev,
                                   [reads, paf, draft], truth, args.threads)
 
+    # ---- scan_check, polish_scan, polish_portable (the scan ladder under
+    # its switches: both scan kernels and, portable, the lockstep engine,
+    # counted) ----------------------------------------------------------
+    scheck, pscan, _ = scan_phase(cli, cpu, work, data, region, dev,
+                                  [reads, paf, draft], truth, args.threads)
+
     # ---- fusion (the device executor across two tenants), then the
     # cache's persistent tier on fusion's first cut ---------------------
     cut_a, cut_a_bytes, cut_a_wall = fusion_phase(work, data, args.threads)
@@ -3809,7 +4102,8 @@ def main(argv=None) -> int:
     # ---- kernels ---------------------------------------------------------
     emit("kernels", run_s=round(time.perf_counter() - t_run, 3),
          status={name: "ok" for name in [*mapped["launches"],
-                                          "poa_lockstep"]})
+                                          "poa_lockstep", "align_scan_full",
+                                          "align_scan_band"]})
     if args.work is None:
         shutil.rmtree(work)
     wfa, band, seed = acheck["wfa"], acheck["band"], mapped["seed"]
@@ -3854,7 +4148,28 @@ def main(argv=None) -> int:
         "max_abs_err": lcheck["max_abs_err"],
         "ms": lcheck["auto_kernel_ms"], "plain_ms": lcheck["auto_plain_ms"],
         "bound_ms": lcheck["auto_bound_ms"],
-        "bound_by": lcheck["auto_bound_by"], "library_ms": None}]}))
+        "bound_by": lcheck["auto_bound_by"], "library_ms": None}, {
+        "name": "align_scan_full", "route": "cuda",
+        "source": "racon_tpu_torch/cuda/csrc/align_scan.cu",
+        "replaces": "racon_tpu/tpu/aligner.py:75",
+        # the polish's own launches, or, when it sent no pair to the
+        # full kernel, those of the batched aligner's run
+        "launches": (pscan["forced_full"] or pscan)["launches"][
+            "align_scan_full"],
+        "max_abs_err": scheck["full_max_abs_err"],
+        "ms": scheck["full"]["kernel_ms"],
+        "plain_ms": scheck["full"]["plain_ms"],
+        "bound_ms": scheck["full"]["bound_ms"],
+        "bound_by": scheck["full"]["bound_by"], "library_ms": None}, {
+        "name": "align_scan_band", "route": "cuda",
+        "source": "racon_tpu_torch/cuda/csrc/align_scan.cu",
+        "replaces": "racon_tpu/tpu/aligner.py:166",
+        "launches": pscan["launches"]["align_scan_band"],
+        "max_abs_err": scheck["band_max_abs_err"],
+        "ms": scheck["band"]["kernel_ms"],
+        "plain_ms": scheck["band"]["plain_ms"],
+        "bound_ms": scheck["band"]["bound_ms"],
+        "bound_by": scheck["band"]["bound_by"], "library_ms": None}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

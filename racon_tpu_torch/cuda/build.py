@@ -31,7 +31,12 @@ ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 #: kernel sources, by library name
 SOURCES = {"poa_full": "poa_full.cu", "align_wfa": "align_wfa.cu",
            "align_band": "align_band.cu", "seed_words": "seed_words.cu",
-           "poa_lockstep": "poa_lockstep.cu"}
+           "poa_lockstep": "poa_lockstep.cu", "align_scan": "align_scan.cu"}
+#: every kernel's launch counter: a library's own name, or one per
+#: kernel where a library holds two (align_scan: the full and the
+#: banded scan kernel)
+KERNELS = ("poa_full", "align_wfa", "align_band", "seed_words",
+           "poa_lockstep", "align_scan_full", "align_scan_band")
 
 _VP, _I = ctypes.c_void_p, ctypes.c_int
 #: argument types of each library's ``<name>_launch`` (pointers and the
@@ -42,6 +47,7 @@ SIGNATURES = {
     "align_band": [_VP] * 9 + [_I] * 7 + [_VP],
     "seed_words": [_VP] * 3 + [ctypes.c_longlong, _I, _VP],
     "poa_lockstep": [_VP] * 10 + [_I] * 9 + [_VP],
+    "align_scan": [_VP] * 7 + [_I] * 4 + [_VP],
 }
 
 #: other C functions of a library: name -> (argument types, result)
@@ -51,7 +57,9 @@ EXTRA = {"poa_full": {"poa_full_slots": ([_I] * 3, _I)},
                        "align_wfa_warps": ([_I], _I)},
          "align_band": {"align_band_slots": ([_I] * 2, _I),
                         "align_band_smem": ([_I] * 2, _I),
-                        "align_band_warps": ([_I] * 2, _I)}}
+                        "align_band_warps": ([_I] * 2, _I)},
+         "align_scan": {"align_scan_roll_bytes": ([_I] * 3,
+                                                  ctypes.c_longlong)}}
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -160,13 +168,13 @@ def count_launch(name: str) -> None:
 def launch_counts() -> Dict[str, int]:
     """Every kernel's launch count in this process now."""
     return {name: int(REGISTRY.value(LAUNCH_COUNTER + name, 0))
-            for name in SOURCES}
+            for name in KERNELS}
 
 
 def zero_launch_counts() -> None:
     """Set every kernel's launch count to 0: an in-process caller that
     counts one run from 0 (a daemon never does)."""
-    for name in SOURCES:
+    for name in KERNELS:
         REGISTRY.zero(LAUNCH_COUNTER + name)
 
 

@@ -363,26 +363,32 @@ class DeviceExecutor:
 
     # -- engines ------------------------------------------------------------
     def _make_engine(self, match, mismatch, gap, vcap, pcap, lcap,
-                     max_depth, banded, device):
+                     max_depth, banded, device, lockstep_only=False):
         # a seam for tests (stub engines)
         return CudaPoaBatchEngine(match, mismatch, gap, device=device,
                                   vcap=vcap, pcap=pcap, lcap=lcap,
-                                  max_depth=max_depth, banded=banded)
+                                  max_depth=max_depth, banded=banded,
+                                  lockstep_only=lockstep_only)
 
     def poa_handle(self, match, mismatch, gap, vcap, pcap, lcap,
                    max_depth, banded, device, tenant=None, cap=0,
-                   util=None, size_at=None, pool=None) -> PoaEngineHandle:
-        """A handle on the shared engine of this configuration."""
+                   util=None, size_at=None, pool=None,
+                   lockstep_only=False) -> PoaEngineHandle:
+        """A handle on the shared engine of this configuration
+        (``lockstep_only``: every batch on the lockstep engine)."""
         device = torch.device(device)
         cfg = (match, mismatch, gap, vcap, pcap, lcap, max_depth,
                bool(banded), device.type)
+        if lockstep_only:
+            cfg += ("lockstep",)
         with self._engine_lock:
             key = cfg + (str(device),)
             engine = self._engines.get(key)
             if engine is None:
                 engine = self._make_engine(match, mismatch, gap, vcap,
                                            pcap, lcap, max_depth, banded,
-                                           device)
+                                           device,
+                                           lockstep_only=lockstep_only)
                 self._engines[key] = engine
         handle = PoaEngineHandle(self, engine, tenant, cap, util=util,
                                  size_at=size_at, pool=pool)

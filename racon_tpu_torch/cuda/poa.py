@@ -169,12 +169,14 @@ class CudaPoaBatchEngine:
 
     def __init__(self, match: int, mismatch: int, gap: int, *, device,
                  vcap: int = 2048, pcap: int = 16, lcap: int = 1024,
-                 max_depth: int = 200, banded: bool = False):
+                 max_depth: int = 200, banded: bool = False,
+                 lockstep_only: bool = False):
         self.match, self.mismatch, self.gap = match, mismatch, gap
         self.device = torch.device(device)
         self.vcap, self.pcap, self.lcap = vcap, pcap, lcap
         self.max_depth = max_depth
         self.banded = banded
+        self.lockstep_only = lockstep_only
         self.wb = pf.band_width(lcap, banded)
 
     def depth_cap(self, windows) -> int:
@@ -188,7 +190,12 @@ class CudaPoaBatchEngine:
         """True when the whole-window kernel takes a batch of depth cap
         ``d1``; else ``consensus_batch_async`` runs the lockstep engine
         at dispatch (a pipelining caller drains first and keeps that
-        wall out of the full kernel's rate)."""
+        wall out of the full kernel's rate).  ``lockstep_only`` sends
+        every batch to the lockstep engine (the polisher sets it under
+        RACON_TPU_TORCH_PORTABLE=1, the JAX package's
+        RACON_TPU_NO_PALLAS=1, racon_tpu/tpu/poa_pallas.py:available)."""
+        if self.lockstep_only:
+            return False
         return pf.fits(self.vcap, self.lcap, d1, self.pcap, self.pcap, 8,
                        self.wb)
 

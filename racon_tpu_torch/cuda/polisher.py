@@ -22,6 +22,14 @@ engine on those workers beside the ladder (device-only: in the base
 class's pass after it, cudapolisher.cpp:212-216); the few probe pairs
 and final-rung failures take that pass too.
 
+Under RACON_TPU_TORCH_SCAN_ALIGN=1 or RACON_TPU_TORCH_PORTABLE=1 (the
+JAX package's RACON_TPU_PALLAS_ALIGN=0 and RACON_TPU_NO_PALLAS=1, its
+device path off a TPU) the align stage runs the scan ladder instead
+(``_scan_align``: square pow2 buckets, the static ``_split_cut`` at
+RACON_TPU_TORCH_ALIGN_SPLIT, ``cuda/aligner.py:band_align_batch`` on
+the card, the CPU tail on the native engine); the over-length pairs
+take the base class's pass.
+
 POA (``cuda_poa_batches > 0``, --cudapoa-batches): windows with at
 least 3 sequences are sorted deepest first and split the same way: the
 device prefix goes to the whole-window POA kernel in megabatches, two
@@ -115,7 +123,9 @@ from racon_tpu_torch.cuda import poa_full as pf
 from racon_tpu_torch.cuda import poa_lockstep as pl
 from racon_tpu_torch.cuda.poa import lockstep_columns
 from racon_tpu_torch.obs import MetricAttr
+from racon_tpu_torch.obs import REGISTRY
 from racon_tpu_torch.obs import calhealth as obs_calhealth
+from racon_tpu_torch.obs import flight as obs_flight
 from racon_tpu_torch.obs import faultinject
 from racon_tpu_torch.obs import trace as obs_trace
 from racon_tpu_torch.obs.decision import DECISIONS
@@ -156,6 +166,12 @@ def _rate_split(dev_costs, cpu_costs, cpu_base: float = 0.0) -> int:
     return cut
 
 
+def _wfa_on() -> bool:
+    """RACON_TPU_TORCH_WFA=0 turns the WFA rungs off (the JAX package's
+    RACON_TPU_WFA=0, racon_tpu/tpu/align_pallas.py:wfa_available)."""
+    return os.environ.get("RACON_TPU_TORCH_WFA", "1") != "0"
+
+
 def _split_cut(weights, share: float) -> int:
     """Deterministic boundary: the first index where the weight prefix
     reaches ``share`` of the total (the device owns [0, cut))."""
@@ -181,12 +197,18 @@ class CudaPolisher(Polisher):
     # (align_wfa.MAX_DIM) then takes only the band rungs
     MAX_ALIGN_DIM = 16384
     MAX_ALIGNMENTS_PER_BATCH = 1024
+    # device bytes one scan-ladder chunk's direction tapes may hold (the
+    # JAX package's ALIGN_MEM_BUDGET)
+    ALIGN_MEM_BUDGET = 2 << 30
     # pairs per plain-version call on the CPU (its arrays grow with the
     # batch)
     CPU_ALIGN_BATCH = 64
     # the ladder's rungs: WFA e-step caps, then band widths
     WFA_RUNGS = (512, 1024, 2048)
     BAND_RUNGS = (2048, 4096, 8192)
+    # the align kernels, the default ladder's and the scan ladder's
+    ALIGN_KERNELS = ("align_wfa", "align_band", "align_scan_full",
+                     "align_scan_band")
     # the divergence probe (_probe_divergence): a target with n pending
     # pairs CPU-aligns min(PROBE_PAIRS, n // PROBE_EVERY) of them, and
     # one left with fewer than PROBE_MIN prices at the fixed priors
@@ -247,6 +269,9 @@ class CudaPolisher(Polisher):
                     f"{pl.MAX_COLS}!")
         self.max_align_dim = int(os.environ.get(
             "RACON_TPU_TORCH_MAX_ALIGN_DIM", self.MAX_ALIGN_DIM))
+        # RACON_TPU_TORCH_PORTABLE=1: every POA megabatch on the
+        # lockstep engine (and the scan ladder, al.scan_selected)
+        self.portable = al.portable()
         # this polisher's device intervals; on the card a fresh anchor
         # maps its CUDA events onto the obs clock
         self.device_util = DeviceUtil()
@@ -283,12 +308,13 @@ class CudaPolisher(Polisher):
         #: per rung with a later rung: pairs passed on to it
         self.align_retry_counts = {}
         #: per kernel: dispatches and their CUDA-event milliseconds
-        self.align_dispatches = {"align_wfa": 0, "align_band": 0}
-        self.align_kernel_ms = {"align_wfa": 0.0, "align_band": 0.0}
+        self.align_dispatches = dict.fromkeys(self.ALIGN_KERNELS, 0)
+        self.align_kernel_ms = dict.fromkeys(self.ALIGN_KERNELS, 0.0)
         #: per kernel: DP cells its dispatches computed, (min(d, emax)
-        #: + 1)^2 per WFA pair and query rows x band per band pair
-        #: (``align_cells`` is their sum)
-        self.align_kernel_cells = {"align_wfa": 0, "align_band": 0}
+        #: + 1)^2 per WFA pair, query rows x band per band pair, and
+        #: the scan kernels' ``aligner.kernel_cells`` (``align_cells`` is
+        #: their sum)
+        self.align_kernel_cells = dict.fromkeys(self.ALIGN_KERNELS, 0)
         #: per kernel: summed clock64() cycles per phase (meta[:, 2:4]):
         #: wavefront steps or DP rows, then traceback
         self.align_cycles = {"align_wfa": [0, 0], "align_band": [0, 0]}
@@ -396,7 +422,7 @@ class CudaPolisher(Polisher):
             banded=self.cuda_banded_alignment, device=self.device,
             tenant=self._executor_tenant, cap=self.MAX_BATCH,
             util=self.device_util, size_at=self._megabatch_size,
-            pool=self._pool)
+            pool=self._pool, lockstep_only=self.portable)
 
     def _tail_workers(self, device_only_env: str) -> int:
         """CPU workers of a hybrid stage: all threads but one, none
@@ -1048,7 +1074,12 @@ class CudaPolisher(Polisher):
         if pending:
             pending.sort(key=lambda x: -x[0])
             over.sort(key=lambda x: -x[0])
-            self._hybrid_align(pending, over)
+            if al.scan_selected():
+                # the over-length pairs take the pass after the ladder,
+                # as in the JAX package's scan path
+                self._scan_align(pending)
+            else:
+                self._hybrid_align(pending, over)
         self._mark_align_device_free()
 
     def _cpu_tail_align(self, o: Overlap) -> None:
@@ -1090,12 +1121,12 @@ class CudaPolisher(Polisher):
         self._probe_divergence(pending)
         ratio = self.align_probe_ratio
         dims = [d for d, _ in pending]
-        wfa_cap = self.WFA_RUNGS[-1]
+        wfa_cap = self._wfa_emax_cap()
 
         def dev_cost(d, o):
             est = self._wfa_need(o, ratio)
-            return est * r_wfa if est <= wfa_cap and d <= aw.MAX_DIM \
-                else d * r_dev
+            return est * r_wfa if wfa_cap and est <= wfa_cap \
+                and d <= aw.MAX_DIM else d * r_dev
 
         def cpu_cells(d):
             return d + (ratio * d) ** 2
@@ -1261,6 +1292,17 @@ class CudaPolisher(Polisher):
         self.align_probe_p50, self.align_probe_ratio = quantiles(ratios)
 
     @staticmethod
+    def _wfa_emax_cap() -> int:
+        """Largest e-step the WFA rungs may use, 0 for none
+        (racon_tpu/tpu/polisher.py:_wfa_emax_cap):
+        RACON_TPU_TORCH_WFA_EMAX caps it (default 2048),
+        RACON_TPU_TORCH_WFA=0 turns the WFA rungs off."""
+        if not _wfa_on():
+            return 0
+        return max(0, int(os.environ.get("RACON_TPU_TORCH_WFA_EMAX",
+                                         2048)))
+
+    @staticmethod
     def _wfa_need(o: Overlap, ratio: float) -> int:
         """Estimated edit distance of one overlap at divergence
         ``ratio``: the WFA rung admission estimate."""
@@ -1401,7 +1443,12 @@ class CudaPolisher(Polisher):
         # WFA admission at p75: a pair past its rung wastes a pass
         wfa_need = [self._wfa_need(o, p75[o.t_id]) for o in overlaps]
         pending = list(range(n))
-        rungs = list(self.WFA_RUNGS)
+        wfa_cap = self._wfa_emax_cap()
+        rungs = [e for e in self.WFA_RUNGS if e <= wfa_cap]
+        # RACON_TPU_TORCH_WFA=0 is the banded-only ladder of the JAX
+        # package's RACON_TPU_WFA=0: no WFA rung and no measured-center
+        # retries
+        recenter = _wfa_on()
         by_target = {}
         for i in pending:
             if max(len(queries[i]), len(targets[i])) > wbd:
@@ -1517,7 +1564,8 @@ class CudaPolisher(Polisher):
             self._rung_left(f"band{wb}", still, last=wb == last)
             idx_set = set(idx)
             pending = [i for i in pending if i in still or i not in idx_set]
-            use_emp.update(still)       # a failure retries on measured centers
+            if recenter:
+                use_emp.update(still)   # a failure retries on measured centers
             tag = (f", {len(still)} " + ("retries" if wb != last else "cpu")
                    if still else "")
             self.logger.log(f"{_LOG} device-aligned {len(idx) - len(still)}"
@@ -1526,3 +1574,170 @@ class CudaPolisher(Polisher):
         # exceeded_max_alignment_difference skip)
         self.align_cpu_fallthrough = len(pending)
         self.align_cells = sum(self.align_kernel_cells.values())
+
+    # ------------------------------------------------------------------
+    # the scan ladder (racon_tpu/tpu/polisher.py:1492-1582, :1973-2070)
+    # ------------------------------------------------------------------
+
+    @staticmethod
+    def _bucket_dim(n: int) -> int:
+        """Square power-of-two bucket of a pair, at least 512."""
+        return pow2_at_least(n, 512)
+
+    def _scan_align(self, pending) -> None:
+        """The scan ladder's split (racon_tpu/tpu/polisher.py:
+        _hybrid_scan_align): pairs in square pow2 buckets, longest
+        first; the card takes the prefix up to the static
+        ``_split_cut`` at RACON_TPU_TORCH_ALIGN_SPLIT (default 0.5) of
+        the bucket weight, in same-bucket chunks sized against
+        ``ALIGN_MEM_BUDGET``, while ``num_threads - 1`` CPU workers
+        align the tail on the native engine
+        (RACON_TPU_TORCH_ALIGN_DEVICE_ONLY, or -t 1: no tail)."""
+        pending = [(self._bucket_dim(d), o) for d, o in pending]
+        n_workers = self._tail_workers("RACON_TPU_TORCH_ALIGN_DEVICE_ONLY")
+        work = deque(pending)
+        if not n_workers:
+            dev_left = len(pending)
+        else:
+            dev_left = _split_cut(
+                [p[0] for p in pending],
+                float(os.environ.get("RACON_TPU_TORCH_ALIGN_SPLIT",
+                                     "0.5")))
+        mode = "scan" if n_workers else "device_only"
+        DECISIONS.record("align_split", cut=int(dev_left),
+                         n_pending=len(pending), source="scan")
+        self.align_split_detail = {"mode": mode, "cut": dev_left,
+                                   "n_pending": len(pending),
+                                   "n_cpu_workers": n_workers}
+        self.logger.log(
+            f"{_LOG} align split ({mode}): device {dev_left}/"
+            f"{len(pending)} overlap(s) on the scan ladder, cpu "
+            f"{len(pending) - dev_left} on {n_workers} worker(s); "
+            f"{self.align_over_length} over {self.max_align_dim} bases on "
+            "the CPU")
+        lock = threading.Lock()
+        n_cpu = [0]
+        stop = []
+
+        def cpu_worker():
+            while True:
+                with lock:
+                    if stop or len(work) <= dev_left:
+                        return
+                    _, o = work.pop()
+                    n_cpu[0] += 1
+                self._cpu_tail_align(o)
+
+        workers = [self._pool.submit(cpu_worker) for _ in range(n_workers)]
+        n_done = 0
+        try:
+            while True:
+                with lock:
+                    limit = min(len(work), dev_left)
+                    if limit <= 0:
+                        break
+                    bd = work[0][0]
+                    bytes_per_lane = 2 * bd * ((min(2048, bd) + 5) // 4)
+                    max_b = max(1, int(self.ALIGN_MEM_BUDGET
+                                       // bytes_per_lane))
+                    max_b = min(max_b, self.MAX_ALIGNMENTS_PER_BATCH)
+                    chunk = []
+                    while work and len(chunk) < min(max_b, limit) \
+                            and work[0][0] == bd:
+                        chunk.append(work.popleft()[1])
+                    dev_left -= len(chunk)
+                self._scan_chunk(chunk, bd, bd)
+                n_done += len(chunk)
+                self.logger.log(f"{_LOG} device-aligned {n_done} overlaps "
+                                f"(bucket {bd}x{bd})")
+            if self.device.type == "cuda":
+                torch.cuda.empty_cache()
+            self._mark_align_device_free()
+        except BaseException:
+            stop.append(True)
+            raise
+        finally:
+            for f in workers:
+                f.result()
+        self.align_cpu_tail = n_cpu[0]
+        self.align_cells = sum(self.align_kernel_cells.values())
+        if n_cpu[0]:
+            self.logger.log(f"{_LOG} cpu-aligned {n_cpu[0]} overlaps "
+                            "concurrently")
+
+    def _scan_chunk(self, chunk: List[Overlap], blq: int, blt: int) -> None:
+        """One bucket chunk through the scan ladder
+        (racon_tpu/tpu/polisher.py:_align_chunk): pairs the result cache
+        holds (``scan_key``: pair bytes, bucket dims, need ratio) skip
+        it; the rest run ``band_align_batch`` at the prior need ratio of
+        1/5 (the scan path never probes) with no unbanded kernel past
+        the last rung, so the pairs it leaves keep no CIGAR and take the
+        CPU pass (cached as None).  The chunk's wall against the
+        ``align`` rate's prediction goes to calhealth and an
+        ``align_chunk`` record."""
+        from racon_tpu_torch import cache as rcache
+
+        queries = [o.query_span(self.sequences) for o in chunk]
+        targets = [o.target_span(self.sequences) for o in chunk]
+        need_ratio = self.align_probe_p50
+        cached, keys, cache = {}, [None] * len(chunk), None
+        if rcache.enabled():
+            with REGISTRY.timer(rcache.HOST_S):
+                cache = rcache.result_cache()
+                epoch = rcache.keying.engine_epoch()
+                for idx in range(len(chunk)):
+                    keys[idx] = rcache.keying.scan_key(
+                        queries[idx], targets[idx], blq, blt, need_ratio,
+                        epoch)
+                    v = cache.get(keys[idx])
+                    if v is not rcache.MISS:
+                        cached[idx] = v
+            if cached:
+                obs_flight.FLIGHT.record(
+                    "cache_hit", unit_kind="scan", hits=len(cached),
+                    misses=len(chunk) - len(cached), items=len(chunk))
+        miss = [i for i in range(len(chunk)) if i not in cached]
+        runs_of = {}
+        if miss:
+            stats = {}
+            t0 = _now()
+            ops, _, unresolved = al.band_align_batch(
+                [queries[i] for i in miss], [targets[i] for i in miss],
+                blq, blt, allow_full=False,
+                mem_budget=self.ALIGN_MEM_BUDGET, need_ratio=need_ratio,
+                device=self.device, util=self.device_util, stats=stats)
+            t1 = _now()
+            for name, st in stats.items():
+                self.align_dispatches[name] += st["launches"]
+                self.align_kernel_ms[name] += st["kernel_ms"]
+                self.align_kernel_cells[name] += st["cells"]
+                self.align_band_device_s += st["device_s"]
+                self.align_device_s += st["device_s"]
+            r_dev, _, _ = calibrate.get_rates(
+                "align", self.device, self.DEV_NS_PER_ROW,
+                self.CPU_NS_PER_CELL, pin=self._calib_pin)
+            units = float(sum(len(queries[i]) for i in miss))
+            pred = calibrate.predict_chunk_wall("align", units, r_dev)
+            obs_calhealth.observe("align_band", pred, t1 - t0,
+                                  registry=self.metrics)
+            DECISIONS.record("align_chunk", engine="band", rung=int(blq),
+                             units=round(units, 1),
+                             predicted_s=round(pred, 6),
+                             measured_s=round(t1 - t0, 6))
+            obs_trace.TRACER.add_span(f"align.chunk.scan{blq}", t0, t1,
+                                      cat="align", args={"n": len(miss)})
+            skip = set(unresolved.tolist())
+            self.align_cpu_fallthrough += len(skip)
+            for k, i in enumerate(miss):
+                runs = None if k in skip else al.ops_to_runs(ops[k])
+                runs_of[i] = runs
+                if cache is not None:
+                    with REGISTRY.timer(rcache.HOST_S):
+                        cache.put(keys[i], runs)
+        runs_of.update(cached)
+        for idx, o in enumerate(chunk):
+            runs = runs_of.get(idx)
+            if runs is not None:
+                o.cigar_runs = tuple(runs)
+                self._stream_decode(o)
+        self._stream_decode_flush()

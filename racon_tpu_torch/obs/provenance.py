@@ -33,6 +33,10 @@ KNOWN_KNOBS = {
     "RACON_TPU_TORCH_ALIGN_SPLIT": "",
     "RACON_TPU_TORCH_POA_SPLIT": "",
     "RACON_TPU_TORCH_MAX_ALIGN_DIM": "16384",
+    "RACON_TPU_TORCH_SCAN_ALIGN": "",
+    "RACON_TPU_TORCH_PORTABLE": "",
+    "RACON_TPU_TORCH_WFA": "1",
+    "RACON_TPU_TORCH_WFA_EMAX": "2048",
     "RACON_TPU_TORCH_WFA_MAX_MB": "256",
     "RACON_TPU_TORCH_CACHE_DIR": "",
     "RACON_TPU_TORCH_RECALIBRATE": "",
