@@ -122,8 +122,15 @@ Needs one CUDA card.  Phases, one JSON line each:
                 pairs of tools/scan_pairs.py (bucket 1,024; hw 0, 7 and
                 512); op tapes must agree exactly, some lane must run
                 past its band; per row the CUDA-event ms (median of 5),
-                the plain ms, the cells, the bound and the direction
-                tape's bytes;
+                the plain ms, the cells, the bound, the direction
+                tape's bytes and the banded or full kernel's sweep /
+                traceback clock64() cycle split;
+   scan_card    kernel only: scan_check's hw 2,048 region pairs tiled
+                to 64 lanes (a main-path launch) and to 1,024 in one
+                launch; every lane's tape must equal its pair's tape
+                checked in scan_check (no new plain run); the ms
+                (median of 3) against the tiled cells' bound, and the
+                cycle split;
    polish_scan  the CLI (-c 1 --cudaaligner-batches 1) on the first Mb
                 with RACON_TPU_TORCH_SCAN_ALIGN=1 and the align stage
                 all on the card: distance to the cut's truth <= draft /
@@ -142,10 +149,11 @@ Needs one CUDA card.  Phases, one JSON line each:
    polish_default  the same CLI at the port's defaults (streaming
                 pipeline, device/CPU splits of both stages), twice, in
                 a fresh calibration store under the work directory:
-                the first run at the built-in rates stores generation
-                1, the second reads it and is traced (a ``traced`` line
-                with the same lane checks and idle shares); a third run
-                as the second but
+                the first run, on the whole set at the built-in rates,
+                stores generation 1, the second, on the first 1 Mb,
+                reads it and is traced (a ``traced`` line with the same
+                lane checks and idle shares); a third run as the second
+                but
                 with the align stage all on the card
                 (RACON_TPU_TORCH_ALIGN_DEVICE_ONLY=1), which splits the
                 default path's wall between its parts.  Each: walls,
@@ -153,23 +161,24 @@ Needs one CUDA card.  Phases, one JSON line each:
                 walls, speculative windows used and wasted, the
                 ledger's ready high-water, the pipeline overlap, the
                 stored rates and the distance (<= draft / 10); every
-                kernel launched; the third run polishes the first 1 Mb
-                (the cut pipeline_bytes polishes at the same rates),
-                its distance against that cut's truth;
+                kernel launched; the second and third runs' first 1 Mb
+                is the cut pipeline_bytes polishes at the same rates,
+                their distance against that cut's truth;
    cache        the result cache on the staged polish of the whole
-                set: cache off, then on and cold (the wall difference is
-                the host cost of keying; ``cache_host_s`` the keying,
-                lookups and fills) and a warm repeat in the same
-                process: every run's wall, launches, cache counters and
-                bytes; all three byte-identical at the staged distance,
-                the warm run hits; then (after fusion, on its first 1 Mb
-                cut, a ``cache`` line with ``part: persist``) a cold fill
+                set: cold (``cache_host_s`` the keying, lookups and
+                fills) and a warm repeat in the same process: each
+                run's wall, launches, cache counters and bytes; both
+                byte-identical at the staged distance, the warm run
+                hits; then (after fusion, on its first 500 kb cut, a
+                ``cache`` line with ``part: persist``) a cold fill
                 with RACON_TPU_TORCH_CACHE_PERSIST=<work>/results and,
                 after ``cache.reset()``, a restart that reads the
                 segments: both byte-identical to fusion's solo run of
-                that cut (staged, cache off), the restart hits the disk;
-   fusion       the device executor on the card: two 1 Mb cuts of the
-                set (the first and the second Mb), staged, cache off,
+                that cut (staged, cache off), the restart hits the disk
+                (the cache off against on: ``--only cache`` and the
+                persistent part);
+   fusion       the device executor on the card: two 500 kb cuts of
+                the set (its first two 500 kb), staged, cache off,
                 each alone, then both in threads as two registered
                 tenants, fused: each one's bytes equal to its solo run,
                 fused_cross_tenant > 0, the fused launches against the
@@ -182,13 +191,13 @@ Needs one CUDA card.  Phases, one JSON line each:
                 bytes, and only b's collect raises;
    serve        the port's serve daemon (``serve --jobs 2``) in a
                 subprocess on the card, one ``serve`` line per part:
-                ``cold_warm``, the fusion phase's first 1 Mb cut
+                ``cold_warm``, the fusion phase's first 500 kb cut
                 submitted twice, staged, cache off, at the polish's
                 megabatch size (RACON_TPU_TORCH_POA_MEGABATCH): both
                 jobs' bytes equal the fusion phase's solo run of the
                 cut, job 2 reports 0 kernel builds and 0 loads, each
                 job's wall and launches beside the one-shot's;
-                ``tenants``, the fusion phase's two 1 Mb cuts alone, then
+                ``tenants``, the fusion phase's two 500 kb cuts alone, then
                 submitted together as two tenants: each one's bytes
                 equal its solo job's, with the fused dispatches, the
                 occupancy and the per-tenant waits; ``default``, a
@@ -201,8 +210,8 @@ Needs one CUDA card.  Phases, one JSON line each:
                 answers the keyed resubmit with the cut's staged
                 cache-off bytes, recovered_jobs 1 and
                 poa_resumed_windows > 0.  A failed job fails the phase;
-   fleet        the fleet: the whole set cut into four contiguous draft
-                regions of ~1.2 Mb with their reads, joined into one
+   fleet        the fleet: the set's first 2 Mb cut into four contiguous
+                draft regions of 500 kb with their reads, joined into one
                 four-contig job (tools/simulate.py:concat_sets); two
                 backend daemons on the card (``--jobs 1``, staged, cache
                 off, RACON_TPU_TORCH_POA_MEGABATCH pinned), a third armed
@@ -211,15 +220,16 @@ Needs one CUDA card.  Phases, one JSON line each:
                 them, one ``fleet`` line per part: ``routed``, the job
                 whole through the router (distance <= draft / 10, its
                 backend and the ``route`` event that placed it, wall,
-                launches); ``scattered``, the job as two staged target
-                shards (bytes equal the routed job's, each shard's
-                backend, wall and skipped parse bytes, the gather's wall
-                against the routed one); ``failover``, the first two
-                contigs as one job (their own concat_sets job) through
-                the armed backend and a survivor (the armed one dies
-                after its first megabatch, route_failover >= 1, the
-                survivor's journal holds the dead shard under its key,
-                the bytes equal the routed job's first two records);
+                launches); ``scattered``, the failover part's two-contig
+                job as two staged target shards (bytes equal the routed
+                job's first two records, each shard's backend, wall and
+                skipped parse bytes, the gather's wall); ``failover``,
+                the first two contigs as one job (their own concat_sets
+                job) through the armed backend and a survivor (the armed
+                one dies after its first megabatch, route_failover >= 1,
+                the survivor's journal holds the dead shard under its
+                key, the bytes equal the routed job's first two
+                records);
                 ``ranks``, the one-shot CLI on that two-contig job as two
                 processes at once with RACON_TPU_TORCH_NPROC=2 (rank 0
                 then rank 1 equal the same records); ``fleet_metrics``,
@@ -280,7 +290,7 @@ Needs one CUDA card.  Phases, one JSON line each:
                 launched, and the seed kernel's main-path ms from its
                 device lane and its bound on round 1's buffers
                 (``seed_round1_bound``); then on the
-                first 1 Mb --rounds 1 with the words built on the card
+                first 500 kb --rounds 1 with the words built on the card
                 and --rounds 2 with them built by numpy, whose round 1
                 must map the same overlaps and write the same bytes
                 (``map_seed_bytes``); ``--only map`` also maps the whole
@@ -289,7 +299,7 @@ Needs one CUDA card.  Phases, one JSON line each:
 7. native_compare  200 region windows on the POA kernel and on the
                 native CPU engine: summed edit distance between the two;
 8. kernels      every ported kernel with its launches in phase 6 (the
-                seed-word kernel's in map_rounds' first-Mb --rounds 1
+                seed-word kernel's in map_rounds' 500 kb --rounds 1
                 run, the lockstep kernel's in polish_w1000's first
                 run; its ms, plain ms and bound summed over
                 lockstep_check's three auto-band rounds; the scan
@@ -311,8 +321,9 @@ twice; the same bytes), ``--only fusion`` phases 1-3 and fusion,
 ``--only serve`` phases 1-3, the staged polish and serve, ``--only
 fleet`` phases 1-3 and fleet, ``--only lockstep`` phases 1-3,
 lockstep_check and polish_w1000, ``--only scan`` phases 1-3,
-scan_check, polish_scan and polish_portable.  ``--keep DIR`` copies the
-traced runs' traces and reports to DIR (open a trace in Perfetto).  The
+scan_check, scan_card, polish_scan and polish_portable.  ``--keep DIR``
+copies the traced runs' traces and reports to DIR (open a trace in
+Perfetto).  The
 calibration store is off (``RACON_TPU_TORCH_CACHE_DIR=""``) outside
 polish_default.  The result cache is on (the default), and every
 counted polish starts from an empty in-process cache with the
@@ -337,6 +348,8 @@ import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+#: the script's start: every line carries its seconds since then (at_s)
+T0 = time.perf_counter()
 if ROOT not in sys.path:
     sys.path.insert(0, ROOT)
 
@@ -387,7 +400,9 @@ OPS_PER_SEED_WORD = 8
 
 
 def emit(phase: str, **kw) -> None:
-    print(json.dumps({"phase": phase, **kw}), flush=True)
+    print(json.dumps({"phase": phase, **kw,
+                      "at_s": round(time.perf_counter() - T0, 1)}),
+          flush=True)
 
 
 def card_line() -> str:
@@ -1581,6 +1596,8 @@ def traced_phase(cli, work, argv, untraced_path, untraced_wall,
          wall_s=round(wall, 3), untraced_wall_s=round(untraced_wall, 3),
          overhead=round(wall / untraced_wall - 1, 4),
          stage_walls_s={k: round(v, 3) for k, v in pol.stage_walls.items()},
+         align_kernel_ms={k: round(v, 3) for k, v in
+                          pol.align_kernel_ms.items()},
          **stats)
     if not same:
         raise RuntimeError("the traced staged polish gave other FASTA")
@@ -1667,32 +1684,35 @@ def cache_runs(cli, work, argv, plan) -> tuple:
     return runs, outs, pols
 
 
-def cache_phase(cli, cpu, work, argv, truth) -> tuple:
+def cache_phase(cli, cpu, work, argv, truth, off: bool = False) -> tuple:
     """The result cache on the staged polish of the whole set (see the
-    module docstring): off, cold and warm, each with its wall, launches,
-    cache counters and bytes held; all byte-identical, at the staged
-    distance; the warm run must hit.  Returns the cold run, the main
-    path's counted staged polish: (polisher, wall s, launches, FASTA
-    path, distance to the truth)."""
-    plan = (("off", {"RACON_TPU_TORCH_CACHE": "0"}, True),
-            ("cold", {}, True),
-            ("warm", {}, False))
+    module docstring): cold and warm (with ``off``, the cache off first,
+    as ``--only cache`` runs it), each with its wall, launches, cache
+    counters and bytes held; all byte-identical, at the staged distance;
+    the warm run must hit.  Returns the cold run, the main path's
+    counted staged polish: (polisher, wall s, launches, FASTA path,
+    distance to the truth)."""
+    plan = ((("off", {"RACON_TPU_TORCH_CACHE": "0"}, True),) if off
+            else ()) + (("cold", {}, True), ("warm", {}, False))
     runs, outs, pols = cache_runs(cli, work, argv, plan)
-    same = all(o == outs["off"] for o in outs.values())
+    same = all(o == outs["cold"] for o in outs.values())
     d_pol = chunked_distance(read_fasta(os.path.join(
-        work, "cache_off.fasta")), truth, cpu)
+        work, "cache_cold.fasta")), truth, cpu)
+    keying = {"keying_wall_s": round(runs["cold"]["wall_s"]
+                                     - runs["off"]["wall_s"], 3)} \
+        if off else {}
     emit("cache", argv=argv[:-3], identical=same, polished_distance=d_pol,
-         keying_wall_s=round(runs["cold"]["wall_s"]
-                             - runs["off"]["wall_s"], 3), runs=runs)
+         **keying, runs=runs)
     if not same:
-        raise RuntimeError("cache: off, cold and warm gave different FASTA")
+        raise RuntimeError(f"cache: {', '.join(outs)} gave different "
+                           "FASTA")
     if runs["warm"]["cache_hit"] <= 0:
         raise RuntimeError(f"cache: warm hits {runs['warm']['cache_hit']}")
     return (*pols["cold"], os.path.join(work, "cache_cold.fasta"), d_pol)
 
 
 def cache_persist(cli, work, cut, threads, off_bytes=None) -> None:
-    """The persistent tier on the first Mb of the set (``cut``, the
+    """The persistent tier on the first 500 kb of the set (``cut``, the
     fusion phase's cut a), staged: a cold fill with
     RACON_TPU_TORCH_CACHE_PERSIST=<work>/results and, after
     ``cache.reset()``, a restart that reads the segments; both
@@ -1766,14 +1786,14 @@ def cache_default(cli, work, argv) -> None:
 
 
 #: draft bases of each of the fusion phase's two cuts
-FUSE_CUT_BP = 1_000_000
+FUSE_CUT_BP = 500_000
 #: the fused run's fusion window (RACON_TPU_TORCH_FUSE_WAIT_MS)
 FUSE_WAIT_MS = 200
 
 
 def fusion_phase(work, data, threads) -> tuple:
     """The device executor on the card (see the module docstring): two
-    1 Mb cuts alone, then fused as two tenants, then a poisoned unit
+    500 kb cuts alone, then fused as two tenants, then a poisoned unit
     beside tenant a's first WFA chunk.  Returns cut a's paths, its
     solo (staged, cache off) FASTA bytes and wall s."""
     import threading
@@ -1943,8 +1963,8 @@ def fusion_phase(work, data, threads) -> tuple:
 #: the serve daemon's start-up limit, and a served job's answer limit
 SERVE_START_S = 300
 SERVE_JOB_S = 900
-#: the SIGKILL part's POA megabatch: ~4 of the first Mb's ~2,000 windows
-SERVE_KILL_MEGABATCH = 512
+#: the SIGKILL part's POA megabatch: ~4 of the first cut's ~1,000 windows
+SERVE_KILL_MEGABATCH = 256
 
 
 def daemon_socket(work, name) -> str:
@@ -2070,15 +2090,15 @@ FUSION_COUNTERS = ("fusion_dispatches", "fusion_units_fused",
 
 
 def fuse_cuts(work, data) -> dict:
-    """The fusion phase's two 1 Mb cuts of the set (the first and the
-    second Mb)."""
+    """The fusion phase's two FUSE_CUT_BP cuts of the set (its first
+    two)."""
     return {name: cut_region(data, os.path.join(work, f"fuse_{name}"),
                              FUSE_CUT_BP, start=k * FUSE_CUT_BP)
             for k, name in enumerate("ab")}
 
 
 def serve_tenants(work, data, sock, threads) -> None:
-    """The serve phase's ``tenants`` part: the two 1 Mb cuts alone, then
+    """The serve phase's ``tenants`` part: the two 500 kb cuts alone, then
     together as two tenants on the daemon at ``sock``; each one's bytes
     must be as alone."""
     import threading
@@ -2132,7 +2152,7 @@ def serve_tenants(work, data, sock, threads) -> None:
 
 def serve_default(cli, work, data, base, threads) -> None:
     """The serve phase's ``default`` part: a default-path job on the
-    first 1 Mb cut at the built-in rates, pinned, on a daemon of its
+    first 500 kb cut at the built-in rates, pinned, on a daemon of its
     own, against its one-shot twin."""
     from racon_tpu_torch.cuda.polisher import CudaPolisher
 
@@ -2175,7 +2195,7 @@ def serve_phase(cli, work, data, batch, threads, cut=None, cut_bytes=None,
     """The serve daemon on the card (module docstring): cold and warm
     jobs, two concurrent tenants, a default-path job and one SIGKILL
     resume, at the main path's POA megabatch ``batch``.  The cold, warm
-    and SIGKILL jobs polish ``cut`` (fusion's first 1 Mb), whose staged
+    and SIGKILL jobs polish ``cut`` (fusion's first 500 kb), whose staged
     cache-off bytes are ``cut_bytes`` in a one-shot run of ``cut_wall``
     s; all three are made here when None."""
     import signal
@@ -2206,7 +2226,7 @@ def serve_phase(cli, work, data, batch, threads, cut=None, cut_bytes=None,
         cut_bytes = read_bytes(cut_path)
     live = []
     try:
-        # ---- a: a cold and a warm job of the first Mb; c: two tenants
+        # ---- a: a cold and a warm job of the first cut; c: two tenants
         proc, sock, log = start_daemon(work, "serve_a", staged)
         live.append((proc, sock))
         jobs = {}
@@ -2237,7 +2257,7 @@ def serve_phase(cli, work, data, batch, threads, cut=None, cut_bytes=None,
         for old in (kill_sock, serve_journal.journal_path(kill_sock)):
             if os.path.exists(old):
                 os.remove(old)
-        # the first Mb in megabatches of SERVE_KILL_MEGABATCH windows:
+        # the first cut in megabatches of SERVE_KILL_MEGABATCH windows:
         # the kill comes with some of them committed
         kill_env = {**staged, "RACON_TPU_TORCH_POA_MEGABATCH":
                     str(SERVE_KILL_MEGABATCH)}
@@ -2301,8 +2321,10 @@ def serve_phase(cli, work, data, batch, threads, cut=None, cut_bytes=None,
          phase_s=round(time.perf_counter() - t_phase, 3))
 
 
-#: contigs of the fleet phase's job: contiguous cuts of the whole set
+#: contigs of the fleet phase's job: contiguous cuts of the set's first
+#: FLEET_BP bases
 FLEET_CONTIGS = 4
+FLEET_BP = 2_000_000
 #: the contigs of the failover part's job: the first two of the four
 FAILOVER_CONTIGS = 2
 #: every fleet process's POA megabatch: part c kills a backend after its
@@ -2315,8 +2337,9 @@ FLEET_ROUTE_ENV = {"RACON_TPU_TORCH_ROUTE_PROBE_S": "0.5",
 
 
 def fleet_data(work, data, truth, cpu) -> tuple:
-    """The whole set cut into FLEET_CONTIGS contiguous draft regions with
-    their reads, joined into one job (``tools/simulate.py:concat_sets``);
+    """The set's first FLEET_BP draft bases cut into FLEET_CONTIGS
+    contiguous regions with their reads, joined into one job
+    (``tools/simulate.py:concat_sets``);
     returns (paths, the paths of the job of the first FAILOVER_CONTIGS
     regions, the truth segment of each contig, the draft's summed
     distance to them)."""
@@ -2324,13 +2347,15 @@ def fleet_data(work, data, truth, cpu) -> tuple:
 
     draft = read_fasta(os.path.join(data, "draft.fasta"))
     scale = len(draft) / len(truth)
-    step = len(draft) // FLEET_CONTIGS
-    bounds = [i * step for i in range(FLEET_CONTIGS)] + [len(draft)]
+    total = min(FLEET_BP, len(draft))
+    step = total // FLEET_CONTIGS
+    bounds = [i * step for i in range(FLEET_CONTIGS)] + [total]
     cuts = [cut_region(data, os.path.join(work, f"fleet_cut{i}"),
                        bounds[i + 1] - bounds[i], start=bounds[i])
             for i in range(FLEET_CONTIGS)]
-    ends = [0] + [len(truth_prefix(truth, draft[:b], scale))
-                  for b in bounds[1:-1]] + [len(truth)]
+    ends = [0] + [len(truth) if b == len(draft) else
+                  len(truth_prefix(truth, draft[:b], scale))
+                  for b in bounds[1:]]
     segs = [truth[ends[i]:ends[i + 1]] for i in range(FLEET_CONTIGS)]
     d_draft = sum(chunked_distance(draft[bounds[i]:bounds[i + 1]], segs[i],
                                    cpu) for i in range(FLEET_CONTIGS))
@@ -2551,8 +2576,11 @@ def fleet_phase(cpu, work, data, truth, threads) -> None:
         if launches["poa_full"] <= 0 or launches["align_wfa"] <= 0:
             raise RuntimeError(f"fleet routed: launches {launches}")
 
-        # ---- b: two target shards, staged, one on each backend
-        fa, resp, wall_b = job(rsock, "fleet-scatter", shards=2)
+        # ---- b: the first two contigs as two target shards, staged,
+        # one on each backend (their bytes: whole's first two)
+        whole_fo = fasta_head(whole, FAILOVER_CONTIGS)
+        fa, resp, wall_b = job(rsock, "fleet-scatter", job_paths=paths_fo,
+                               shards=2)
         rep = resp["report"]
         shards = [{"backend": ps["backend"], "wall_s": ps["wall_s"],
                    "parse_skipped_bytes": sr["run"]["gauges"].get(
@@ -2561,21 +2589,19 @@ def fleet_phase(cpu, work, data, truth, threads) -> None:
                        "host.staged_bytes"),
                    "launches": sr["details"]["launches"]}
                   for ps, sr in zip(rep["per_shard"], rep["shard_reports"])]
-        emit("fleet", part="scattered", identical=fa == whole,
-             shards=shards, gather_wall_s=resp["wall_s"],
-             client_wall_s=round(wall_b, 3),
-             routed_wall_s=round(wall_a, 3),
-             gather_over_routed=round(wall_b / wall_a, 3))
-        if fa != whole or {s["backend"] for s in shards} != {sa, sb}:
-            raise RuntimeError(f"fleet scattered: identical {fa == whole}, "
-                               f"backends {[s['backend'] for s in shards]}")
+        emit("fleet", part="scattered", contigs=FAILOVER_CONTIGS,
+             identical=fa == whole_fo, shards=shards,
+             gather_wall_s=resp["wall_s"], client_wall_s=round(wall_b, 3))
+        if fa != whole_fo or {s["backend"] for s in shards} != {sa, sb}:
+            raise RuntimeError(f"fleet scattered: identical "
+                               f"{fa == whole_fo}, backends "
+                               f"{[s['backend'] for s in shards]}")
         if any(not s["parse_skipped_bytes"] for s in shards):
             raise RuntimeError(f"fleet scattered: a shard parsed it all "
                                f"{shards}")
 
         # ---- c: the first two contigs as two shards, with shard 0's
         # backend killed mid-shard (their bytes: whole's first two)
-        whole_fo = fasta_head(whole, FAILOVER_CONTIGS)
         fa, resp, wall_c = job(ksock, "fleet-failover", job_paths=paths_fo,
                                shards=2)
         rc = pk.wait(timeout=60)
@@ -2876,9 +2902,9 @@ def fleet_phase(cpu, work, data, truth, threads) -> None:
 
 def default_path(cli, cpu, work, reads, paf, draft, truth, d_draft,
                  threads, keep=None) -> None:
-    """polish_default (twice, fresh calibration store; the second run
-    traced) and pipeline_bytes (pipeline off vs on, then on and traced,
-    at the stored rates, pinned)."""
+    """polish_default (twice, fresh calibration store; the second run,
+    on the first Mb, traced) and pipeline_bytes (pipeline off vs on,
+    then on and traced, at the stored rates, pinned)."""
     from racon_tpu_torch.cuda.polisher import CudaPolisher
 
     store = os.path.join(work, "calib")
@@ -2887,7 +2913,7 @@ def default_path(cli, cpu, work, reads, paf, draft, truth, d_draft,
             "1", "--cudaaligner-batches", "1"]
     knobs = dict.fromkeys(DEFAULT_PATH_KNOBS)
     doc = {}
-    # the first Mb, for run 3 and pipeline_bytes
+    # the first Mb, for runs 2 and 3 and pipeline_bytes
     region_bp = min(1_000_000, len(read_fasta(draft)))
     region = cut_region(os.path.dirname(reads),
                         os.path.join(work, "region_1mb"), region_bp)
@@ -2903,7 +2929,7 @@ def default_path(cli, cpu, work, reads, paf, draft, truth, d_draft,
         flags, tpath, mpath = trace_args(work, "default") if run == 2 \
             else ([], None, None)
         inputs, run_truth, run_draft = (
-            (list(region), region_truth, region_draft) if run == 3
+            (list(region), region_truth, region_draft) if run > 1
             else ([reads, paf, draft], truth, d_draft))
         with env_set(RACON_TPU_TORCH_CACHE_DIR=store, **{
                 **knobs, "RACON_TPU_TORCH_ALIGN_DEVICE_ONLY":
@@ -2917,7 +2943,7 @@ def default_path(cli, cpu, work, reads, paf, draft, truth, d_draft,
         a, p = pol.align_split_detail, pol.poa_split_detail
         emit("polish_default", run=run,
              align_device_only=run == 3,
-             region_bp=region_bp if run == 3 else None, argv=argv,
+             region_bp=region_bp if run > 1 else None, argv=argv,
              wall_s=round(wall, 3),
              stage_walls_s={k: round(v, 3)
                             for k, v in pol.stage_walls.items()},
@@ -3265,7 +3291,7 @@ def map_quality(reads: str, draft: str, data: str) -> dict:
 
 #: draft bases of the cut that map_rounds' --rounds 1 runs polish (with
 #: the reads inside them)
-MAP_CUT_BP = 1_000_000
+MAP_CUT_BP = 500_000
 
 
 def map_rounds(cli, cpu, work, data, reads, draft, truth, threads, dev,
@@ -3590,7 +3616,7 @@ OPS_PER_SCAN_BAND_CELL = 13
 SCAN_PORTABLE_BP = 250_000
 
 
-def scan_row(qs, ts, lq: int, lt: int, hw: int, dev) -> dict:
+def scan_row(qs, ts, lq: int, lt: int, hw: int, dev, keep=None) -> dict:
     """One scan kernel launch (hw 0: the full kernel) against its plain
     version on the card, the lanes padded to a power of two as the
     ladder pads them: mismatching lanes, max |op difference|, the
@@ -3610,26 +3636,32 @@ def scan_row(qs, ts, lq: int, lt: int, hw: int, dev) -> dict:
     kin = [torch.from_numpy(a).to(dev) for a in (
         al.encode_batch(qs + pad, lq, al.QPAD),
         al.encode_batch(ts + pad, lt, al.TPAD), ql, tl)]
+    bufs = al.scan_buffers(bb, lq, lt, hw, dev)
     if hw:
         out, ref, ms, plain_ms = timed_pair(
-            lambda: al.align_banded(*kin, hw),
+            lambda: al.align_banded(*kin, hw, bufs),
             lambda: al.align_banded_plain(*kin, hw))
     else:
         out, ref, ms, plain_ms = timed_pair(
-            lambda: al.align_full(*kin), lambda: al.align_full_plain(*kin))
+            lambda: al.align_full(*kin, bufs),
+            lambda: al.align_full_plain(*kin))
     diff = (out.long() - ref.long()).abs().amax(1)
     cells = al.kernel_cells(ql, tl, hw)
     ops = cells * (OPS_PER_SCAN_BAND_CELL if hw else OPS_PER_SCAN_FULL_CELL)
     bms, by = bound(nbytes(*kin), nbytes(out), ops)
     tape = ref.cpu().numpy()[:len(qs)]
     cost = ((tape != al.OP_STOP) & (tape != al.OP_EQ)).sum(1)
+    if keep is not None:
+        keep.update(qs=qs, ts=ts, tapes=tape, lq=lq, lt=lt, hw=hw)
     return {"hw": hw, "lq": lq, "lt": lt, "lanes": len(qs), "padded": bb,
             "longest": int(max(ql.max(), tl.max())),
             "mismatches": int((diff > 0).sum()),
             "max_abs_err": int(diff.max()), "kernel_ms": round(ms, 4),
             "plain_ms": round(plain_ms, 1), "cells": cells,
             "bound_ms": bms, "bound_by": by,
-            "dir_tape_bytes": bb * (lq + lt) * al.packed_width(lt, hw),
+            "dir_tape_bytes": bufs["dirs"].numel(),
+            "cycles": cycle_split(bufs["meta"].sum(0).tolist(),
+                                  ("sweep", "traceback")),
             "certified": int((cost <= hw).sum()) if hw else len(qs),
             "past_band": int((cost > hw).sum()) if hw else 0}
 
@@ -3653,14 +3685,15 @@ def scan_check(region, dev) -> dict:
     short = [k for k in order if max(map(len, pairs[k])) <= 4096]
     six = spread(short, 6)
     four = sorted(set(spread(short, 2) + order[-2:]))
-    rows = []
+    rows, checked = [], {}
     narrow, main_rung, wide = BAND_LADDER
     for hw, idx, bd in ((narrow, six, 8192), (main_rung, four, 16384),
                         (wide, six, 16384), (0, six, 8192)):
         qs = [pairs[k][0] for k in idx]
         ts = [pairs[k][1] for k in idx]
-        rows.append(dict(part="region", **scan_row(qs, ts, bd, bd, hw,
-                                                   dev)))
+        rows.append(dict(part="region", **scan_row(
+            qs, ts, bd, bd, hw, dev,
+            keep=checked if hw == main_rung else None)))
     eq, et = scan_pairs(random.Random(11), 600)
     for hw in (0, 7, 512):
         rows.append(dict(part="edge", **scan_row(eq, et, 1024, 1024, hw,
@@ -3672,7 +3705,48 @@ def scan_check(region, dev) -> dict:
             "band_max_abs_err": max(r["max_abs_err"] for r in band),
             "full_max_abs_err": max(r["max_abs_err"] for r in full),
             "past_band": sum(r["past_band"] for r in band),
-            "band": main, "full": full[0]}
+            "band": main, "full": full[0]}, checked
+
+
+def scan_card(checked: dict, dev, n_lanes: int) -> dict:
+    """Kernel only: scan_check's hw 2,048 region pairs tiled to
+    ``n_lanes`` lanes in one launch of the banded kernel.  Every lane's
+    tape must equal its pair's tape already checked against the plain
+    version; the ms is the median of 3 CUDA-event runs after the
+    checked one, the bound that of the tiled lanes' cells."""
+    import numpy as np
+    import torch
+    from racon_tpu_torch.cuda import aligner as al
+
+    qs, ts, tapes = checked["qs"], checked["ts"], checked["tapes"]
+    lq, lt, hw = checked["lq"], checked["lt"], checked["hw"]
+    idx = [k % len(qs) for k in range(n_lanes)]
+    tq = [qs[k] for k in idx]
+    tt = [ts[k] for k in idx]
+    ql = np.array([len(x) for x in tq], np.int32)
+    tl = np.array([len(x) for x in tt], np.int32)
+    kin = [torch.from_numpy(a).to(dev) for a in (
+        al.encode_batch(tq, lq, al.QPAD), al.encode_batch(tt, lt, al.TPAD),
+        ql, tl)]
+    torch.cuda.empty_cache()
+    bufs = al.scan_buffers(n_lanes, lq, lt, hw, dev)
+    out = al.align_banded(*kin, hw, bufs).cpu().numpy()
+    mism = int((out != tapes[idx]).any(1).sum())
+    ms = statistics.median(cuda_ms(
+        lambda: al.align_banded(*kin, hw, bufs), 3))
+    cycles = bufs["meta"].sum(0).tolist()
+    dir_bytes = bufs["dirs"].numel()
+    del bufs
+    torch.cuda.empty_cache()
+    cells = al.kernel_cells(ql, tl, hw)
+    bms, by = bound(nbytes(*kin), n_lanes * (lq + lt),
+                    cells * OPS_PER_SCAN_BAND_CELL)
+    return {"hw": hw, "lq": lq, "lt": lt, "lanes": n_lanes,
+            "originals": len(qs), "longest": int(max(ql.max(), tl.max())),
+            "mismatches": mism, "kernel_ms": round(ms, 4),
+            "cells": cells, "bound_ms": bms, "bound_by": by,
+            "x_bound": round(ms / bms, 2), "dir_tape_bytes": dir_bytes,
+            "cycles": cycle_split(cycles, ("sweep", "traceback"))}
 
 
 def scan_forced_full(region, dev, cpu) -> dict:
@@ -3752,6 +3826,13 @@ def scan_paths(cli, cpu, work, data, inputs, truth, region, dev,
                 "align_kernel_ms": {k: round(v, 3) for k, v in
                                     pol.align_kernel_ms.items()},
                 "align_cells": kcells,
+                "scan_cycles": {k: cycle_split(pol.align_cycles[k],
+                                               ("sweep", "traceback"))
+                                for k in kcells},
+                "scan_rungs": {str(hw): {k: round(v, 3) for k, v in
+                                         r.items()}
+                               for hw, r in sorted(
+                                   pol.align_scan_rungs.items())},
                 "main_path_bound_ms": {
                     "align_scan_band": bound(
                         0, 0, kcells["align_scan_band"]
@@ -3801,15 +3882,22 @@ def scan_paths(cli, cpu, work, data, inputs, truth, region, dev,
 
 def scan_phase(cli, cpu, work, data, region, dev, inputs, truth,
                threads) -> tuple:
-    """scan_check, then polish_scan and polish_portable; returns the
-    three lines."""
-    scheck = scan_check(region, dev)
+    """scan_check, scan_card, then polish_scan and polish_portable;
+    returns the lines of scan_check, polish_scan and polish_portable."""
+    scheck, checked = scan_check(region, dev)
     emit("scan_check", **scheck)
     if scheck["mismatches"]:
         raise RuntimeError(f"a scan kernel disagrees with its plain version "
                            f"on {scheck['mismatches']} lane(s)")
     if scheck["past_band"] < 1:
         raise RuntimeError("scan_check ran no lane past its band")
+    for n_lanes in (64, 1024):
+        card = scan_card(checked, dev, n_lanes)
+        emit("scan_card", **card)
+        if card["mismatches"]:
+            raise RuntimeError(f"scan_card: {card['mismatches']} of "
+                               f"{n_lanes} tiled lanes differ from their "
+                               "checked tapes")
     return (scheck, *scan_paths(cli, cpu, work, data, inputs, truth, region,
                                 dev, threads))
 
@@ -3835,7 +3923,8 @@ def main(argv=None) -> int:
                     "split and served, inspect --fleet, top --fleet and "
                     "explain); lockstep: env, build, dataset, "
                     "lockstep_check and polish_w1000; scan: env, build, "
-                    "dataset, scan_check, polish_scan and polish_portable; "
+                    "dataset, scan_check, scan_card, polish_scan and "
+                    "polish_portable; "
                     "then exit 0 without the result line")
     ap.add_argument("--keep", default=None,
                     help="directory to copy the traced runs' traces and "
@@ -3931,7 +4020,7 @@ def main(argv=None) -> int:
             map_rounds(cli, cpu, work, data, reads, draft, truth,
                        args.threads, dev, args.keep, quality=True)
         elif args.only == "cache":
-            cache_phase(cli, cpu, work, argv_polish, truth)
+            cache_phase(cli, cpu, work, argv_polish, truth, off=True)
             cache_persist(cli, work, fuse_cuts(work, data)["a"],
                           args.threads)
             cache_default(cli, work, argv_polish)
@@ -3954,9 +4043,11 @@ def main(argv=None) -> int:
             serve_phase(cli, work, data, pol.poa_batch_size, args.threads)
         elif args.only == "traced":
             with env_set(**STAGED_ENV):
-                _, wall, launches = counted_polish(cli, argv_polish,
-                                                   out_path)
-            emit("polish", wall_s=round(wall, 3), launches=launches)
+                pol, wall, launches = counted_polish(cli, argv_polish,
+                                                     out_path)
+            emit("polish", wall_s=round(wall, 3), launches=launches,
+                 align_kernel_ms={k: round(v, 3) for k, v in
+                                  pol.align_kernel_ms.items()})
             traced_phase(cli, work, argv_polish, out_path, wall, args.keep)
             long_cap_phase(cli, work, args.threads)
         else:

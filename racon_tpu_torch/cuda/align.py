@@ -14,6 +14,12 @@ the CPU).  Collecting records that interval in the trace's ``device``
 lane as ``device.align_wfa{emax}`` / ``device.align_band{wb}`` and in
 the dispatch's ``util`` (default ``obs.DEVICE_UTIL``) under
 ``align_wfa`` / ``align_band`` (``cuda/devclock.py``).
+
+Everything a launch reads (codes, lengths, band centres) or writes (its
+outputs and scratch: ``wfa_buffers`` / ``band_buffers``) is made on the
+device before the timer's first mark, so the interval between the two
+marks holds the kernel launch alone and ``kernel_ms()`` reads the
+kernel, not the host's copies or the allocator.
 """
 
 from __future__ import annotations
@@ -30,8 +36,11 @@ from racon_tpu_torch.cuda.devclock import DispatchTimer
 
 
 def _lengths(seqs, device):
-    return torch.tensor([len(s) for s in seqs], dtype=torch.int32,
-                        device=device)
+    return _upload(np.array([len(s) for s in seqs], dtype=np.int32), device)
+
+
+def _upload(arr: np.ndarray, device) -> torch.Tensor:
+    return torch.from_numpy(arr).to(device)
 
 
 def _timed(device, launch, util=None):
@@ -60,12 +69,13 @@ def wfa_dispatch(queries, targets, lq: int, emax: int, device,
     (``meta[:, 2:4]``, 0 on the CPU), and ``collect.cycles``, the same
     per pair."""
     n = len(queries)
-    q = torch.from_numpy(al.encode_batch(queries, lq, al.QPAD)).to(device)
-    t = torch.from_numpy(al.encode_batch(targets, lq, al.TPAD)).to(device)
+    q = _upload(al.encode_batch(queries, lq, al.QPAD), device)
+    t = _upload(al.encode_batch(targets, lq, al.TPAD), device)
+    ql, tl = _lengths(queries, device), _lengths(targets, device)
     lmax = max(max(map(len, queries)), max(map(len, targets)), 1)
+    bufs = aw.wfa_buffers(q, t, ql, tl, emax=emax)
     (tape, meta), timer = _timed(device, lambda: aw.wfa_align(
-        q, t, _lengths(queries, device), _lengths(targets, device),
-        emax=emax, lmax=lmax), util)
+        q, t, ql, tl, emax=emax, lmax=lmax, bufs=bufs), util)
 
     def collect():
         tp = tape.cpu().numpy().reshape(n, -1).astype(np.int64)
@@ -95,11 +105,13 @@ def band_dispatch(queries, targets, lq: int, lt: int, wb: int, device,
         centers[k] if centers is not None and centers[k] is not None
         else ab.proportional_knots(len(queries[k]), len(targets[k]), lq)
         for k in range(n)]).astype(np.int32)
-    q = torch.from_numpy(al.encode_batch(queries, lq, al.QPAD)).to(device)
-    t = torch.from_numpy(al.encode_batch(targets, lt, al.TPAD)).to(device)
+    q = _upload(al.encode_batch(queries, lq, al.QPAD), device)
+    t = _upload(al.encode_batch(targets, lt, al.TPAD), device)
+    ql, tl = _lengths(queries, device), _lengths(targets, device)
+    ctr = _upload(ctr, device)
+    bufs = ab.band_buffers(q, t, wb=wb)
     (tape, meta), timer = _timed(device, lambda: ab.band_align(
-        q, t, _lengths(queries, device), _lengths(targets, device),
-        torch.from_numpy(ctr).to(device), wb=wb), util)
+        q, t, ql, tl, ctr, wb=wb, bufs=bufs), util)
 
     def collect():
         mt = meta.cpu().numpy()

@@ -230,11 +230,35 @@ def check_inputs(q, t, ql, tl, ctr, wb: int) -> Tuple[int, int, int]:
     return b, lq, lt
 
 
-def band_align(q, t, ql, tl, ctr, *, wb: int, warps: int = 0):
+def band_buffers(q, t, *, wb: int) -> dict:
+    """Every buffer one band launch writes, made on the inputs' device
+    before the launch (so a dispatch's event window holds the launch
+    alone): the zeroed tape and meta, the direction scratch, the pair
+    queue's counter and the bound library with its kernels loaded.
+    Nothing on the CPU."""
+    if q.device.type != "cuda":
+        return {}
+    from racon_tpu_torch.cuda import build
+
+    b, lq, lt, dev = int(q.shape[0]), int(q.shape[1]), int(t.shape[1]), \
+        q.device
+    return {
+        "lib": build.prepare("align_band", dev),
+        "tape": torch.zeros((b, tape_rows(lq, lt), 128), dtype=torch.int32,
+                            device=dev),
+        "meta": torch.zeros((b, 8), dtype=torch.int32, device=dev),
+        # 2-bit directions of every band cell, 8 columns per uint16
+        "dirs": torch.empty((b, lq * wb // 8), dtype=torch.int16,
+                            device=dev),
+        "queue": torch.zeros(1, dtype=torch.int32, device=dev)}
+
+
+def band_align(q, t, ql, tl, ctr, *, wb: int, warps: int = 0, bufs=None):
     """(tape, meta) of every pair, on the inputs' device.  CUDA tensors
-    launch the kernel with ``warps`` warps per pair (0: the kernel's
-    choice from the batch size; each thread takes wb / (32 x warps)
-    columns, a multiple of 8); CPU tensors run the plain version."""
+    launch the kernel, into ``bufs`` (``band_buffers``, or buffers made
+    here), with ``warps`` warps per pair (0: the kernel's choice from
+    the batch size; each thread takes wb / (32 x warps) columns, a
+    multiple of 8); CPU tensors run the plain version."""
     b, lq, lt = check_inputs(q, t, ql, tl, ctr, wb)
     if warps not in (0, 1, 2, 4, 8) or (warps and wb % (256 * warps)):
         raise ValueError(f"warps={warps} per pair does not fit wb={wb}")
@@ -244,24 +268,18 @@ def band_align(q, t, ql, tl, ctr, *, wb: int, warps: int = 0):
         raise ValueError(f"unsupported device {q.device}")
     from racon_tpu_torch.cuda import build
 
-    lib = build.load("align_band")
-    dev = q.device
-    rows = tape_rows(lq, lt)
-    tape = torch.zeros((b, rows, 128), dtype=torch.int32, device=dev)
-    meta = torch.zeros((b, 8), dtype=torch.int32, device=dev)
+    if bufs is None:
+        bufs = band_buffers(q, t, wb=wb)
+    tape, meta = bufs["tape"], bufs["meta"]
     if b == 0:
         return tape, meta
-    # 2-bit directions of every band cell, 8 columns per uint16, and the
-    # pair queue of the persistent blocks
-    dirs = torch.empty((b, lq * wb // 8), dtype=torch.int16, device=dev)
-    queue = torch.zeros(1, dtype=torch.int32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    with torch.cuda.device(dev):
-        err = lib.align_band_launch(
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    with torch.cuda.device(q.device):
+        err = bufs["lib"].align_band_launch(
             q.data_ptr(), t.data_ptr(), ql.data_ptr(), tl.data_ptr(),
-            ctr.data_ptr(), dirs.data_ptr(), tape.data_ptr(),
-            meta.data_ptr(), queue.data_ptr(), b, lq, lt, wb, n_ctr(lq),
-            rows * 128, warps, stream)
+            ctr.data_ptr(), bufs["dirs"].data_ptr(), tape.data_ptr(),
+            meta.data_ptr(), bufs["queue"].data_ptr(), b, lq, lt, wb,
+            n_ctr(lq), tape_rows(lq, lt) * 128, warps, stream)
     if err != 0:
         raise RuntimeError(f"align_band kernel launch failed: "
                            f"{build.error_string('align_band', err)} "

@@ -125,13 +125,36 @@ def check_inputs(q, t, ql, tl, emax: int) -> Tuple[int, int]:
     return b, lq
 
 
-def wfa_align(q, t, ql, tl, *, emax: int, lmax: int):
+def wfa_buffers(q, t, ql, tl, *, emax: int) -> dict:
+    """Every buffer one WFA launch writes, and its pair queue, made on
+    the inputs' device before the launch (so a dispatch's event window
+    holds the launch alone): the zeroed tape and meta, the int16
+    history, the longest-first pair order and the queue counter, and
+    the bound library with its kernel loaded.  Nothing on the CPU."""
+    if q.device.type != "cuda":
+        return {}
+    from racon_tpu_torch.cuda import build
+
+    b, dev = int(q.shape[0]), q.device
+    rows = wfa_tape_rows(emax)
+    return {
+        "lib": build.prepare("align_wfa", dev),
+        "tape": torch.zeros((b, rows, 128), dtype=torch.int32, device=dev),
+        "meta": torch.zeros((b, 8), dtype=torch.int32, device=dev),
+        "hist": torch.empty((b, hist_words(emax)), dtype=torch.int16,
+                            device=dev),
+        "order": torch.argsort(torch.maximum(ql, tl), descending=True,
+                               stable=True).to(torch.int32),
+        "queue": torch.zeros(1, dtype=torch.int32, device=dev)}
+
+
+def wfa_align(q, t, ql, tl, *, emax: int, lmax: int, bufs=None):
     """(tape, meta) of every pair, on the inputs' device.  ``lmax`` in
     [1, lq] bounds every ql / tl of the batch (the caller knows the
     lengths): CUDA tensors launch the kernel with shared memory sized
-    for it, and the kernel marks a pair past it with meta[:, 0] =
-    ``TOO_LONG``; CPU tensors run the plain version, after raising on a
-    pair past it."""
+    for it, into ``bufs`` (``wfa_buffers``, or buffers made here), and
+    the kernel marks a pair past it with meta[:, 0] = ``TOO_LONG``; CPU
+    tensors run the plain version, after raising on a pair past it."""
     b, lq = check_inputs(q, t, ql, tl, emax)
     if not 1 <= lmax <= lq:
         raise ValueError(f"lmax={lmax} outside [1, lq={lq}]")
@@ -143,26 +166,19 @@ def wfa_align(q, t, ql, tl, *, emax: int, lmax: int):
         raise ValueError(f"unsupported device {q.device}")
     from racon_tpu_torch.cuda import build
 
-    lib = build.load("align_wfa")
-    dev = q.device
-    rows = wfa_tape_rows(emax)
-    tape = torch.zeros((b, rows, 128), dtype=torch.int32, device=dev)
-    meta = torch.zeros((b, 8), dtype=torch.int32, device=dev)
+    if bufs is None:
+        bufs = wfa_buffers(q, t, ql, tl, emax=emax)
+    tape, meta = bufs["tape"], bufs["meta"]
     if b == 0:
         return tape, meta
-    # the int16 history of every pair, and the pair queue of the
-    # persistent blocks, longest pairs first
-    hist = torch.empty((b, hist_words(emax)), dtype=torch.int16, device=dev)
-    order = torch.argsort(torch.maximum(ql, tl), descending=True,
-                          stable=True).to(torch.int32)
-    queue = torch.zeros(1, dtype=torch.int32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    with torch.cuda.device(dev):
-        err = lib.align_wfa_launch(
+    rows = wfa_tape_rows(emax)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    with torch.cuda.device(q.device):
+        err = bufs["lib"].align_wfa_launch(
             q.data_ptr(), t.data_ptr(), ql.data_ptr(), tl.data_ptr(),
-            tape.data_ptr(), meta.data_ptr(), hist.data_ptr(),
-            order.data_ptr(), queue.data_ptr(), b, lq, lmax, emax,
-            rows * 128, stream)
+            tape.data_ptr(), meta.data_ptr(), bufs["hist"].data_ptr(),
+            bufs["order"].data_ptr(), bufs["queue"].data_ptr(), b, lq, lmax,
+            emax, rows * 128, stream)
     if err != 0:
         raise RuntimeError(f"align_wfa kernel launch failed: "
                            f"{build.error_string('align_wfa', err)} ({err})")

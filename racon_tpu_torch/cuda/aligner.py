@@ -155,63 +155,110 @@ def check_inputs(q, t, ql, tl, hw: int) -> Tuple[int, int, int]:
     return b, lq, lt
 
 
-def _launch(q, t, ql, tl, hw: int, name: str):
-    """One align_scan launch (hw 0: the full kernel): the op tape."""
+def tape_bytes(b: int, lq: int, lt: int, hw: int, device) -> int:
+    """Bytes of the direction tape of a launch of ``b`` lanes: the
+    kernels' own layout on the card (``align_scan_dir_bytes``; -1 when
+    hw is past the banded kernel), elsewhere the JAX package's 2-bit
+    one (``packed_width``), by which its ladder sizes its chunks."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return b * (lq + lt) * packed_width(lt, hw)
+    from racon_tpu_torch.cuda import build
+
+    with torch.cuda.device(device):
+        return int(build.load("align_scan").align_scan_dir_bytes(
+            b, lq, lt, hw))
+
+
+def scan_buffers(b: int, lq: int, lt: int, hw: int, device) -> dict:
+    """Every buffer one scan launch writes, made on ``device`` before
+    the launch (so a dispatch's event window holds the launch alone):
+    ``ops`` [b, lq + lt] uint8 zeroed (the tapes), ``meta`` [b, 2]
+    int64 zeroed (each lane's sweep and traceback clock64() cycles; the
+    plain version leaves 0), the launch they were made for (``key``),
+    and on the card the direction tape, the full kernel's rolling rows
+    past shared memory and the bound library with its kernels loaded.
+    Raises when hw is past the banded kernel."""
+    device = torch.device(device)
+    bufs = {"ops": torch.zeros((b, lq + lt), dtype=torch.uint8,
+                               device=device),
+            "meta": torch.zeros((b, 2), dtype=torch.int64, device=device),
+            "key": (b, lq, lt, hw)}
+    if device.type != "cuda" or b == 0:
+        return bufs
+    from racon_tpu_torch.cuda import build
+
+    bufs["lib"] = lib = build.prepare("align_scan", device)
+    with torch.cuda.device(device):
+        dir_bytes = int(lib.align_scan_dir_bytes(b, lq, lt, hw))
+        roll_bytes = int(lib.align_scan_roll_bytes(lq, lt, hw))
+    if dir_bytes < 0:
+        raise ValueError(f"hw={hw} is past the banded kernel")
+    bufs["dirs"] = torch.empty(dir_bytes, dtype=torch.uint8, device=device)
+    bufs["roll"] = torch.empty(max(1, b * roll_bytes // 4),
+                               dtype=torch.int32, device=device)
+    return bufs
+
+
+def _launch(q, t, ql, tl, hw: int, name: str, bufs: dict):
+    """One align_scan launch (hw 0: the full kernel) into ``bufs``
+    (``scan_buffers`` for this very launch: the tape's size follows b,
+    lq, lt and hw): the op tape."""
     from racon_tpu_torch.cuda import build
 
     b, lq, lt = int(q.shape[0]), int(q.shape[1]), int(t.shape[1])
-    dev = q.device
-    ops = torch.zeros((b, lq + lt), dtype=torch.uint8, device=dev)
+    if bufs.get("key") != (b, lq, lt, hw):
+        raise ValueError(f"scan buffers made for (b, lq, lt, hw) = "
+                         f"{bufs.get('key')} do not fit the launch's "
+                         f"{(b, lq, lt, hw)}")
+    ops = bufs["ops"]
     if b == 0:
         return ops
-    lib = build.load("align_scan")
-    with torch.cuda.device(dev):
-        roll_bytes = int(lib.align_scan_roll_bytes(lq, lt, hw))
-    # each lane's 2-bit directions, one packed row a diagonal, and (past
-    # what shared memory holds) its rolling diagonals
-    dirs = torch.empty(b * (lq + lt) * packed_width(lt, hw),
-                       dtype=torch.uint8, device=dev)
-    roll = torch.empty(max(1, b * roll_bytes // 4), dtype=torch.int32,
-                       device=dev)
+    dev = q.device
+    dirs, meta = bufs["dirs"], bufs["meta"]
+    if any(x.device != dev for x in (ops, meta, dirs)):
+        raise ValueError("scan buffers are not on the inputs' device")
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
-        err = lib.align_scan_launch(
+        err = bufs["lib"].align_scan_launch(
             q.data_ptr(), t.data_ptr(), ql.data_ptr(), tl.data_ptr(),
-            dirs.data_ptr(), ops.data_ptr(), roll.data_ptr(), b, lq, lt, hw,
-            stream)
+            dirs.data_ptr(), ops.data_ptr(), meta.data_ptr(),
+            bufs["roll"].data_ptr(), b, lq, lt, hw, stream)
     if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed: "
-                           f"{build.error_string('align_scan', err)} "
-                           f"({err})")
+        msg = bufs["lib"].align_scan_error_string(err).decode()
+        raise RuntimeError(f"{name} kernel launch failed: {msg} ({err})")
     build.count_launch(name)
     return ops
 
 
-def _run(q, t, ql, tl, hw: int, plain, name: str):
-    check_inputs(q, t, ql, tl, hw)
+def _run(q, t, ql, tl, hw: int, plain, name: str, bufs):
+    b, lq, lt = check_inputs(q, t, ql, tl, hw)
     if q.device.type == "cpu":
         return plain()
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
-    return _launch(q, t, ql, tl, hw, name)
+    if bufs is None:
+        bufs = scan_buffers(b, lq, lt, hw, q.device)
+    return _launch(q, t, ql, tl, hw, name, bufs)
 
 
-def align_full(q, t, ql, tl):
+def align_full(q, t, ql, tl, bufs=None):
     """Reversed op tapes ``[B, lq + lt]`` of the unbanded alignment, on
-    the inputs' device: the kernel for CUDA tensors, the plain version
-    for CPU tensors."""
+    the inputs' device: the kernel for CUDA tensors (into ``bufs``, from
+    ``scan_buffers``, or buffers made here), the plain version for CPU
+    tensors."""
     return _run(q, t, ql, tl, 0, lambda: align_full_plain(q, t, ql, tl),
-                "align_scan_full")
+                "align_scan_full", bufs)
 
 
-def align_banded(q, t, ql, tl, hw: int):
+def align_banded(q, t, ql, tl, hw: int, bufs=None):
     """Reversed op tapes ``[B, lq + lt]`` of the alignment banded at
     half-width ``hw`` (>= 1), on the inputs' device."""
     if hw < 1:
         raise ValueError(f"hw={hw}: the banded kernel needs hw >= 1")
     return _run(q, t, ql, tl, hw,
                 lambda: align_banded_plain(q, t, ql, tl, hw),
-                "align_scan_band")
+                "align_scan_band", bufs)
 
 
 # ---------------------------------------------------------------------------
@@ -430,7 +477,11 @@ def band_align_batch(queries: Sequence[bytes], targets: Sequence[bytes],
     (the CPU); each launch's interval goes to ``util`` (default
     ``obs.DEVICE_UTIL``) and the trace's device lane.  ``stats``, when
     given, accumulates per kernel its ``launches``, ``kernel_ms``,
-    ``device_s`` and ``cells`` (``kernel_cells``).
+    ``device_s``, ``cells`` (``kernel_cells``), ``cycles`` (the
+    lanes' summed sweep and traceback cycles, 0 on the CPU) and
+    ``rungs`` (per half-width: launches, lanes, kernel_ms).  Each
+    launch's inputs and buffers (``scan_buffers``) are made before its
+    timer's first mark, so the marks hold the kernel wrapper alone.
 
     Returns (ops, cells, unresolved): the reversed op tapes
     [n, blq + blt] uint8, the ladder's cell count (the JAX package's:
@@ -463,31 +514,42 @@ def band_align_batch(queries: Sequence[bytes], targets: Sequence[bytes],
         tl = np.zeros(bb, np.int32)
         tl[:len(idx)] = tl_all[idx]
         args = [torch.from_numpy(a).to(device) for a in (q, t, ql, tl)]
+        bufs = scan_buffers(bb, blq, blt, hw, device)
         name = "align_scan_band" if hw else "align_scan_full"
         timer = DispatchTimer(device, util)
         timer.mark()
-        ops = align_banded(*args, hw) if hw else align_full(*args)
+        ops = align_banded(*args, hw, bufs) if hw \
+            else align_full(*args, bufs)
         timer.mark()
         ops = ops.cpu().numpy()
+        cycles = bufs["meta"].sum(0).tolist()
         timer.record(f"device.{name}{hw if hw else ''}", name,
                      {"n": len(idx)})
         cells += bb * (blq + blt) * ((hw + 2) if hw else (blt + 1))
         if stats is not None:
             st = stats.setdefault(name, {"launches": 0, "kernel_ms": 0.0,
-                                         "device_s": 0.0, "cells": 0})
+                                         "device_s": 0.0, "cells": 0,
+                                         "cycles": [0, 0]})
             st["launches"] += 1
             st["kernel_ms"] += timer.kernel_ms()
             st["device_s"] += timer.device_s()
             st["cells"] += kernel_cells(ql, tl, hw)
+            st["cycles"] = [a + int(c) for a, c in zip(st["cycles"], cycles)]
+            rung = st.setdefault("rungs", {}).setdefault(
+                hw, {"launches": 0, "lanes": 0, "kernel_ms": 0.0})
+            rung["launches"] += 1
+            rung["lanes"] += len(idx)
+            rung["kernel_ms"] += timer.kernel_ms()
         return ops[:len(idx)]
 
     def run(idx, hw):
-        # chunk by this rung's direction-tape footprint: a wide rung
-        # costs ~16x the narrow one per lane
-        width = (hw + 5) // 4 if hw else (blt + 4) // 4
-        per_lane = (blq + blt) * width
-        cap = max(1, int(mem_budget // per_lane))
-        cap = 1 << (cap.bit_length() - 1)   # pow2: padding respects it
+        # chunk by this rung's direction-tape bytes (a wide rung costs
+        # ~16x the narrow one per lane): the largest pow2 chunk within
+        # mem_budget (padding respects it), at least one lane
+        cap = 1 << (len(idx) - 1).bit_length()
+        while cap > 1 and tape_bytes(cap, blq, blt, hw,
+                                     device) > mem_budget:
+            cap //= 2
         outs = [run_one(idx[k:k + cap], hw)
                 for k in range(0, len(idx), cap)]
         return np.concatenate(outs) if len(outs) > 1 else outs[0]

@@ -47,19 +47,24 @@ SIGNATURES = {
     "align_band": [_VP] * 9 + [_I] * 7 + [_VP],
     "seed_words": [_VP] * 3 + [ctypes.c_longlong, _I, _VP],
     "poa_lockstep": [_VP] * 10 + [_I] * 9 + [_VP],
-    "align_scan": [_VP] * 7 + [_I] * 4 + [_VP],
+    "align_scan": [_VP] * 8 + [_I] * 4 + [_VP],
 }
 
 #: other C functions of a library: name -> (argument types, result)
 EXTRA = {"poa_full": {"poa_full_slots": ([_I] * 3, _I)},
          "align_wfa": {"align_wfa_slots": ([_I] * 3, _I),
                        "align_wfa_smem": ([_I] * 2, _I),
-                       "align_wfa_warps": ([_I], _I)},
+                       "align_wfa_warps": ([_I], _I),
+                       "align_wfa_prepare": ([], _I)},
          "align_band": {"align_band_slots": ([_I] * 2, _I),
                         "align_band_smem": ([_I] * 2, _I),
-                        "align_band_warps": ([_I] * 2, _I)},
+                        "align_band_warps": ([_I] * 2, _I),
+                        "align_band_prepare": ([], _I)},
          "align_scan": {"align_scan_roll_bytes": ([_I] * 3,
-                                                  ctypes.c_longlong)}}
+                                                  ctypes.c_longlong),
+                        "align_scan_dir_bytes": ([_I] * 4,
+                                                 ctypes.c_longlong),
+                        "align_scan_prepare": ([], _I)}}
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -151,6 +156,22 @@ def load(name: str) -> ctypes.CDLL:
         _libs[name] = lib
         REGISTRY.add("cuda_kernel_loads")
         return lib
+
+
+def prepare(name: str, device) -> ctypes.CDLL:
+    """The bound library of one kernel, its kernels loaded on the CUDA
+    ``device`` (``<name>_prepare``).  CUDA loads a module at a kernel's
+    first use; a dispatch that prepares before its timer's first mark
+    keeps that load out of its event window.  Raises on an error."""
+    import torch
+
+    lib = load(name)
+    with torch.cuda.device(device):
+        err = getattr(lib, f"{name}_prepare")()
+    if err != 0:
+        raise RuntimeError(f"{name} kernels failed to load: "
+                           f"{error_string(name, err)} ({err})")
+    return lib
 
 
 #: prefix of each kernel's launch counter in the process registry

@@ -556,6 +556,18 @@ int align_band_launch(const void* q, const void* t, const void* ql,
                      wb, n_ctr, tape_w, nw, sms, s);
 }
 
+// Loads both kernels on the current device.  CUDA loads a module at
+// its first use, so a launch that came first would pay for the load
+// inside its dispatch's event window; the wrapper calls this with the
+// buffers, before the window.  Returns a CUDA error code (0 = ready).
+int align_band_prepare() {
+    cudaFuncAttributes a;
+    cudaError_t e = cudaFuncGetAttributes(&a, align_band_kernel<1>);
+    if (e == cudaSuccess)
+        e = cudaFuncGetAttributes(&a, align_band_kernel<4>);
+    return (int)e;
+}
+
 // Warps per pair the launch takes for a batch of b pairs at band wb.
 int align_band_warps(int b, int wb) {
     return warps_per_pair(b, wb, sm_count());

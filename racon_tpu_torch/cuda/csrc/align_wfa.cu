@@ -457,6 +457,15 @@ int align_wfa_launch(const void* q, const void* t, const void* ql,
     return (int)cudaGetLastError();
 }
 
+// Loads the kernel on the current device.  CUDA loads a module at its
+// first use, so a launch that came first would pay for the load inside
+// its dispatch's event window; the wrapper calls this with the buffers,
+// before the window.  Returns a CUDA error code (0 = ready).
+int align_wfa_prepare() {
+    cudaFuncAttributes a;
+    return (int)cudaFuncGetAttributes(&a, align_wfa_kernel);
+}
+
 // Warps per pair the launch takes for a batch of b pairs.
 int align_wfa_warps(int b) { return warps_per_pair(b, sm_count()); }
 

@@ -315,9 +315,15 @@ class CudaPolisher(Polisher):
         #: the scan kernels' ``aligner.kernel_cells`` (``align_cells`` is
         #: their sum)
         self.align_kernel_cells = dict.fromkeys(self.ALIGN_KERNELS, 0)
-        #: per kernel: summed clock64() cycles per phase (meta[:, 2:4]):
-        #: wavefront steps or DP rows, then traceback
-        self.align_cycles = {"align_wfa": [0, 0], "align_band": [0, 0]}
+        #: per kernel: summed clock64() cycles per phase (meta[:, 2:4];
+        #: the scan kernels' meta[:, 0:2]): wavefront steps, DP rows or
+        #: the scan sweep, then traceback
+        self.align_cycles = {"align_wfa": [0, 0], "align_band": [0, 0],
+                             "align_scan_band": [0, 0],
+                             "align_scan_full": [0, 0]}
+        #: the scan ladder per half-width (0: the unbanded kernel):
+        #: launches, lanes, kernel ms
+        self.align_scan_rungs = {}
         #: per align chunk: (kernel, rung, wall s collect to collect,
         #: busy s (``_busy_s``), units: WFA steps or band query rows);
         #: busy over units is the device rate the store keeps
@@ -1711,6 +1717,14 @@ class CudaPolisher(Polisher):
                 self.align_dispatches[name] += st["launches"]
                 self.align_kernel_ms[name] += st["kernel_ms"]
                 self.align_kernel_cells[name] += st["cells"]
+                self.align_cycles[name] = [
+                    a + c for a, c in zip(self.align_cycles[name],
+                                          st["cycles"])]
+                for hw, r in st["rungs"].items():
+                    acc = self.align_scan_rungs.setdefault(
+                        hw, dict.fromkeys(r, 0))
+                    for k, v in r.items():
+                        acc[k] += v
                 self.align_band_device_s += st["device_s"]
                 self.align_device_s += st["device_s"]
             r_dev, _, _ = calibrate.get_rates(

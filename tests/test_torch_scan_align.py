@@ -162,6 +162,56 @@ def test_wrappers_take_the_plain_version_on_the_cpu():
         al.align_full(arrs[0], arrs[1], arrs[2].long(), arrs[3])
 
 
+def test_buffers_of_another_launch_raise():
+    """Buffers sized for one launch are refused by another: the
+    direction tape's size follows b, lq, lt and hw, so a launch into a
+    smaller tape would write past it."""
+    from racon_tpu_torch.cuda import build
+
+    arrs = _torch(_batch(*_pairs(5, 4, 40)))
+    b, lq, lt = int(arrs[0].shape[0]), arrs[0].shape[1], arrs[1].shape[1]
+    before = build.launch_counts()["align_scan_band"]
+    for key in ((b, lq, lt, 8), (2 * b, lq, lt, 9), (b, lq, lt + 1, 9)):
+        bufs = al.scan_buffers(*key, "cpu")
+        with pytest.raises(ValueError, match="do not fit"):
+            al._launch(*arrs, 9, "align_scan_band", bufs)
+    assert build.launch_counts()["align_scan_band"] == before
+
+
+def test_a_failed_launch_raises_and_counts_nothing(monkeypatch):
+    """A launch the library refuses raises with its error string, no
+    launch is counted and no plain version runs in its place (a stand-in
+    library and stream on CPU tensors: the wrapper itself sends a CUDA
+    tensor here and a CPU one to the plain version)."""
+    import contextlib
+    import types
+
+    from racon_tpu_torch.cuda import build
+
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda dev=None: types.SimpleNamespace(cuda_stream=0))
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda dev: contextlib.nullcontext())
+
+    class Refusing:
+        def align_scan_launch(self, *args):
+            return 1
+
+        def align_scan_error_string(self, err):
+            return b"invalid argument"
+
+    arrs = _torch(_batch(*_pairs(5, 4, 40)))
+    b, lq, lt = int(arrs[0].shape[0]), arrs[0].shape[1], arrs[1].shape[1]
+    bufs = al.scan_buffers(b, lq, lt, 9, "cpu")
+    bufs.update(lib=Refusing(), dirs=torch.empty(64, dtype=torch.uint8),
+                roll=torch.empty(1, dtype=torch.int32))
+    before = build.launch_counts()["align_scan_band"]
+    with pytest.raises(RuntimeError, match="invalid argument"):
+        al._launch(*arrs, 9, "align_scan_band", bufs)
+    assert build.launch_counts()["align_scan_band"] == before
+    assert not bufs["ops"].any()
+
+
 # ---------------------------------------------------------------------------
 # the ladder and the batched aligner == the JAX package's
 # ---------------------------------------------------------------------------
@@ -197,6 +247,38 @@ def test_band_align_batch_equals_jax(monkeypatch, allow_full, need_ratio):
         assert len(got[2]) == 0 and stats["align_scan_full"]["launches"]
     else:
         assert len(got[2]) > 0 and "align_scan_full" not in stats
+
+
+@pytest.mark.parametrize("chunk", ["one", "two", "all"])
+@pytest.mark.parametrize("allow_full", [True, False])
+def test_band_align_batch_chunk_and_order_free(monkeypatch, chunk,
+                                               allow_full):
+    """A lane's tape and whether it is resolved do not depend on the
+    chunk it rides in or on its place in the batch: ``mem_budget`` at
+    one lane a launch, two at the wider rung (four at the narrow one),
+    or every lane in one launch, with the lanes in order and permuted,
+    all give the tapes and unresolved set of the one-launch run."""
+    monkeypatch.setattr(al, "BAND_LADDER", (16, 48))
+    qs, ts = _pairs(12, 20, 110)
+    qs, ts = qs[:21], ts[:21]
+    per_lane = 256 * ((48 + 5) // 4)
+    budget = {"one": 1, "two": 2 * per_lane, "all": 1 << 30}[chunk]
+    ref = al.band_align_batch(qs, ts, 128, 128, allow_full=allow_full,
+                              mem_budget=1 << 30, need_ratio=0.05)
+    perm = np.random.default_rng(4).permutation(len(qs))
+    for order in (np.arange(len(qs)), perm):
+        stats = {}
+        got = al.band_align_batch([qs[k] for k in order],
+                                  [ts[k] for k in order], 128, 128,
+                                  allow_full=allow_full, mem_budget=budget,
+                                  need_ratio=0.05, stats=stats)
+        assert np.array_equal(got[0], ref[0][order])
+        assert sorted(order[got[2]].tolist()) == sorted(ref[2].tolist())
+        if chunk == "one":
+            assert stats["align_scan_band"]["launches"] > 2 * 2
+    # the unrelated pairs pass the last rung: the unbanded kernel takes
+    # them, or they come back unresolved
+    assert (len(ref[2]) == 0) == allow_full
 
 
 @pytest.mark.parametrize("ladder", [None, (8, 32)], ids=["stock", "low"])
@@ -485,3 +567,91 @@ def test_kernels_match_plain_on_card():
     counts = build.launch_counts()
     assert counts["align_scan_full"] == 3
     assert counts["align_scan_band"] == 4
+    # a band past the kernel's widest (a cluster of 8 blocks of 16
+    # warps) raises; nothing runs in its place
+    with pytest.raises(ValueError, match="past the banded kernel"):
+        al.align_banded(*arrs, 1 << 16)
+    assert build.launch_counts()["align_scan_band"] == 4
+
+
+def _card_set(hw: int, seed: int):
+    """Pairs for the banded kernel on the card at half-width ``hw``: a
+    0-length and a 1-base lane, lengths of every residue modulo the 9
+    slots a thread (and modulo 17) and around multiples of a warp's 288,
+    mutated at 2-12%, and lanes past the band (unrelated, or lengths
+    apart by more than hw)."""
+    rng = random.Random(seed)
+
+    def seq(n):
+        return bytes(rng.choice(b"ACGT") for _ in range(n))
+
+    lens = [17 * 9 + r for r in range(17)] + [288 * m + r for m in (1, 2)
+                                              for r in (0, 1, 8, 9, 33)]
+    qs = [b"", b"A", b"", b"C"]
+    ts = [seq(40), b"A", b"", b"G"]
+    for n in lens:
+        s = seq(n)
+        qs.append(s)
+        ts.append(mutate(s, rng.choice((0.02, 0.06, 0.12)), rng))
+    past = max(hw + 40, 300)
+    qs += [seq(300), seq(past + 200), seq(120)]
+    ts += [seq(310), seq(90), seq(past + 120)]
+    return qs, ts
+
+
+def _on_card(qs, ts, lq=None, lt=None):
+    return [a.cuda() for a in _torch(_batch(qs, ts, lq, lt, pad_lanes=0))]
+
+
+def _tapes_equal(arrs, hw):
+    got = al.align_banded(*arrs, hw)
+    ref = al.align_banded_plain(*arrs, hw)
+    bad = (got != ref).any(1).nonzero().flatten().tolist()
+    return bad, ref
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hw", [1, 7, 512, 2048, 8192])
+def test_band_kernel_mixed_lanes_on_card(hw):
+    """The banded kernel against its plain version at every rung and at
+    narrow half-widths, on mixed lengths with empty, 1-base and
+    past-the-band lanes; at hw 2,048 also two pairs of more than 8,192
+    bases (needs a GPU and nvcc)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    qs, ts = _card_set(hw, 21 + hw)
+    if hw == 2048:
+        rng = random.Random(5)
+        long_q = bytes(rng.choice(b"ACGT") for _ in range(9000))
+        qs += [long_q, long_q[:8500]]
+        ts += [mutate(long_q, 0.08, rng), mutate(long_q, 0.03, rng)[:8300]]
+    bad, ref = _tapes_equal(_on_card(qs, ts), hw)
+    assert bad == [], f"lanes {bad} differ at hw {hw}"
+    cost = _cost(ref.cpu().numpy())
+    assert (cost > hw).any(), "no lane past its band"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hw", [512, 2048, 8192])
+@pytest.mark.parametrize("b", [1, 3, 33, 257])
+def test_band_kernel_batch_sizes_on_card(hw, b):
+    """Batches of 1, 3, 33 and 257 lanes (several pairs a block past
+    132 lanes; at hw 8,192 a pair split over a cluster of 8, 4 or, at
+    257 lanes, the 2 blocks of 15 warps that hold its 29), each lane's
+    tape equal to the plain version's and unchanged when the lanes are
+    permuted."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    rng = random.Random(b)
+    qs, ts = [], []
+    for k in range(b):
+        s = bytes(rng.choice(b"ACGT") for _ in range(rng.randint(0, 700)))
+        qs.append(s)
+        ts.append(mutate(s, 0.1, rng) if k % 7 else
+                  bytes(rng.choice(b"ACGT") for _ in range(600)))
+    arrs = _on_card(qs, ts, 768, 768)
+    bad, ref = _tapes_equal(arrs, hw)
+    assert bad == []
+    perm = torch.from_numpy(np.random.default_rng(b).permutation(b)).cuda()
+    got = al.align_banded(*[a[perm].contiguous() for a in arrs], hw)
+    assert torch.equal(got, ref[perm])
