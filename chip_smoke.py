@@ -34,7 +34,7 @@ Needs one CUDA card.  Phases, one JSON line each:
                 region's fitting windows tiled to >= 4x the kernel's
                 resident blocks, every replica equal to its original,
                 with ms, windows/s, ring hit rate and phase shares; and
-                the same for the windows of a deeper set (100 kb at
+                the same for the windows of a deeper set (50 kb at
                 60x), with the share of windows past the first pass or
                 the cap and one second-pass window held against the
                 plain version;
@@ -93,15 +93,18 @@ Needs one CUDA card.  Phases, one JSON line each:
                 card: the rounds a -w 1000 batch of 8 region windows
                 (spread over depth) exports, the first, middle and last,
                 at the auto band (wb 512) and with -b (wb 256), the
-                middle auto round at the kernel's wider builds (its
-                layers widened to bands of 1,024, 2,048 and 4,096
-                columns; its lanes of layers up to 1,024 bases at 1,025
-                columns unbanded), every
+                middle auto round widened (its layers at bands of 1,024
+                to 16,384 columns, walked tile by tile; its lanes of
+                layers up to 1,024 bases at 1,025 columns unbanded),
+                both middle rounds' lanes tiled to 500 in one launch
+                (kernel only, each lane held to its plain tapes), every
                 round of the tiny windows at caps that take the
                 unbanded kernel (l_b 128), and a constructed round whose
                 preds lag 5 or more band quanta (wb 32); node and seq
                 tapes must agree exactly; per round the CUDA-event ms
-                (median of 5), the plain ms, the DP cells and the bound;
+                (median of 5), the plain ms, the DP cells, the bound
+                and the kernel's phase split (a timed launch's clock64()
+                cycles per phase, cycles a rank, the deepest lane's);
    polish_w1000 the port's CLI at -w 1000 (caps V 4096, LP 2048: every
                 megabatch takes the lockstep engine), staged, all on the
                 card, cache off, on the first 500 kb, then with -b:
@@ -110,13 +113,24 @@ Needs one CUDA card.  Phases, one JSON line each:
                 whole-window kernel's 0), rejects by code (vcap, pcap,
                 kcap), distance to the truth <= draft / 10; phase 6's
                 -w 500 polish must have run 0 lockstep rounds;
+   polish_wlong the port's CLI at -w 20000 (refused before the kernel
+                walked a row tile by tile), staged, all on the card,
+                cache off, on a 45 kb 5x set of 25 kb reads: launches,
+                rounds, every
+                round's columns (one past 4,096 at least), rejects by
+                code, the kernel's ms, the first round past 4,096
+                columns (its lane of fewest ranks) held against its plain
+                version, distance to the truth <= the native CPU
+                engine's at -w 20000 x 1.1 (its polish a process on the
+                host beside lockstep_check; racon's POA does not reach
+                draft / 10 at that -w on these sets);
    scan_check   the scan ladder's two kernels (align_scan.cu; the JAX
                 package's scan kernels, its device path off a TPU)
                 against their plain versions on the card: the banded
                 kernel at the ladder's rungs (hw 512 on 6 region pairs
                 of at most 4,096 bases spread over length, bucket 8,192;
-                hw 2,048 on the 2 longest and 2 of those and hw 8,192 on
-                the 6, bucket 16,384) and the full kernel (the 6, bucket
+                hw 2,048 on 2 of those and hw 8,192 on the 6, bucket
+                16,384) and the full kernel (the 6, bucket
                 8,192), at their real lengths, the lanes padded to a
                 power of two as the ladder pads them, plus the edge
                 pairs of tools/scan_pairs.py (bucket 1,024; hw 0, 7 and
@@ -320,7 +334,7 @@ persistent part (against the cut's own cache-off run) and
 twice; the same bytes), ``--only fusion`` phases 1-3 and fusion,
 ``--only serve`` phases 1-3, the staged polish and serve, ``--only
 fleet`` phases 1-3 and fleet, ``--only lockstep`` phases 1-3,
-lockstep_check and polish_w1000, ``--only scan`` phases 1-3,
+lockstep_check, polish_w1000 and polish_wlong, ``--only scan`` phases 1-3,
 scan_check, scan_card, polish_scan and polish_portable.  ``--keep DIR``
 copies the traced runs' traces and reports to DIR (open a trace in
 Perfetto).  The
@@ -1316,13 +1330,13 @@ def full_card(fitting, dev, stock, plain_second_pass: int = 0) -> dict:
 
 def deep_windows(work: str, threads: int, engine) -> list:
     """The POA windows (>= 3 sequences, fitting the engine's caps) of a
-    deeper set: 100 kb simulated as the dataset is (ONT model, 8 kb
+    deeper set: 50 kb simulated as the dataset is (ONT model, 8 kb
     reads) but at 60x coverage, seed 11."""
     from racon_tpu_torch.core.polisher import PolisherType, create_polisher
     from racon_tpu_torch.tools import simulate
 
     paths = simulate.simulate(os.path.join(work, "deep"),
-                              genome_len=100_000, coverage=60,
+                              genome_len=50_000, coverage=60,
                               read_len=8000, seed=11, ont=True)
     pol = create_polisher(*paths, PolisherType.kC, 500, 10.0, 0.3, True,
                           5, -4, -8, threads)
@@ -3422,23 +3436,79 @@ LOCKSTEP_W = 1000
 #: the -w 1000 runs' cut of the draft (at 250 kb the cut's ends weigh
 #: too much: -b wrote 598 against a 4,641 draft)
 W1000_BP = 500_000
+#: lockstep_check's wider rows: the middle auto round's layers widened to
+#: these (layer bucket, band) shapes: -w above 1,024, 2,048, 4,096, 8,192
+#: and 16,384
+LOCKSTEP_WIDE = ((4096, 1024), (8192, 2048), (16384, 4096), (32768, 8192),
+                 (65536, 16384))
+#: lanes of lockstep_check's tiled launches: a -w 1000 megabatch of the
+#: first 500 kb (polish_w1000's batch)
+LOCKSTEP_TILED_LANES = 500
+#: polish_wlong: -w 20000 (caps V 131,072, LP 65,536: rounds of layers
+#: past 16,384 bases take bands of 8,192 columns) on a small long-read set:
+#: two 20 kb windows and a ~6 kb one (whose lane in the first round has
+#: the fewest ranks: the plain check's)
+WLONG_W = 20_000
+WLONG_SET = dict(genome_len=45_000, coverage=5, read_len=25_000, seed=11,
+                 ont=True)
+#: the native polish's threads: one a window, beside lockstep_check
+WLONG_NATIVE_THREADS = 3
+#: polish_wlong's accuracy bar: the native CPU engine's distance at the
+#: same -w, times this (the kernel's band against the engine's full
+#: rows).  racon's POA does not reach draft / 10 at -w 20000 on these
+#: sets: on 150 kb at 10x the native engine wrote 7,971 against a 2,781
+#: draft (507 at -w 500)
+WLONG_NATIVE_SLACK = 1.1
+
+
+def lockstep_split(kin, kw, ranks) -> dict:
+    """The kernel's phase split on one timed launch (the build that reads
+    clock64() per phase): each phase's cycles summed over the lanes and
+    its share, the DP's cycles a rank (pred fetch to sink fold, over
+    every lane's ranks), the deepest lane's cycles (a launch lasts as long
+    as it), pred rows read from the device ring, slow-path columns, and
+    the kernel's plan (columns a thread, shared ring rows)."""
+    from racon_tpu_torch.cuda import poa_lockstep as pl
+
+    b = len(ranks)
+    bufs = pl.lockstep_buffers(b, kw["v"], kw["l"], kw["k"], kw["wb"],
+                               kin[0].device, timed=True)
+    pl.poa_round(*kin, **kw, bufs=bufs)
+    meta = bufs["meta"].cpu().numpy().astype("int64")
+    n = len(pl.PHASES)
+    tot = max(1, int(meta[:, :n].sum()))
+    dp = meta[:, :n - 1].sum()
+    plan = pl.plan(kw["v"], kw["l"], kw["p"], kw["wb"], kin[0].device)
+    return {"phases": {name: {"cycles": int(meta[:, i].sum()),
+                              "share": round(float(meta[:, i].sum()) / tot,
+                                             4)}
+                       for i, name in enumerate(pl.PHASES)},
+            "cycles_per_rank": round(float(dp) / max(1, int(ranks.sum())),
+                                     1),
+            "deepest_lane_cycles": int(meta[:, :n].sum(1).max()),
+            **{name: int(meta[:, n + i].sum())
+               for i, name in enumerate(pl.COUNTS)},
+            "plan": plan}
 
 
 def round_check(arrs, v: int, l: int, wb: int, dev, p: int = 16,
-                k: int = 128) -> dict:
+                k: int = 128, keep=None) -> dict:
     """One round through the lockstep kernel (median of 5 CUDA-event
-    runs after a warm call) and its plain version on the card: lanes
-    whose node or seq tape differ, max |difference|, both times, the
-    DP cells the round needs (each lane's ranks x columns), its real
-    pred rows and the bound."""
+    runs after a warm call, into buffers made before) and its plain
+    version on the card: lanes whose node or seq tape differ, max
+    |difference|, both times, the DP cells the round needs (each lane's
+    ranks x columns), its real pred rows, the bound, and the kernel's
+    phase split (``lockstep_split``).  ``keep`` (a dict) gets the inputs
+    and the plain version's tapes."""
     import numpy as np
     import torch
     from racon_tpu_torch.cuda import poa_lockstep as pl
 
     kin = [torch.from_numpy(a).to(dev) for a in arrs]
     kw = dict(v=v, l=l, p=p, k=k, wb=wb, match=5, mismatch=-4, gap=-8)
+    bufs = pl.lockstep_buffers(len(arrs[2]), v, l, k, wb, dev)
     out, ref, ms, plain_ms = timed_pair(
-        lambda: pl.poa_round(*kin, **kw),
+        lambda: pl.poa_round(*kin, **kw, bufs=bufs),
         lambda: pl.poa_round_reference(*kin, **kw))
     diff = torch.stack([(o.long() - r.long()).abs().amax(1)
                         for o, r in zip(out, ref)]).amax(0)
@@ -3449,22 +3519,66 @@ def round_check(arrs, v: int, l: int, wb: int, dev, p: int = 16,
     pred_rows = int(((arrs[1] >= 0) & live[:, :, None]).sum())
     bms, by = bound(nbytes(*kin), nbytes(*out),
                     *lockstep_ops(cells, pred_rows, cols))
+    if keep is not None:
+        keep.update(arrs=arrs, ref=[r.cpu() for r in ref], v=v, l=l, wb=wb)
     return {"v": v, "l": l, "wb": wb, "cols": cols, "lanes": len(ranks),
             "mismatches": int((diff > 0).sum()),
             "max_abs_err": int(diff.max()), "kernel_ms": round(ms, 4),
             "plain_ms": round(plain_ms, 1), "cells": cells,
-            "pred_rows": pred_rows, "bound_ms": bms, "bound_by": by}
+            "pred_rows": pred_rows, "bound_ms": bms, "bound_by": by,
+            "split": lockstep_split(kin, kw, ranks)}
+
+
+def tiled_check(kept: dict, dev, n_lanes: int) -> dict:
+    """Kernel only: a checked round's lanes tiled to ``n_lanes`` lanes in
+    one launch (a -w 1000 megabatch's width).  Every lane's tapes must
+    equal its lane's plain tapes already computed; the ms is the median
+    of 5 CUDA-event runs after a warm call, the bound that of the tiled
+    lanes' cells."""
+    import numpy as np
+    import torch
+    from racon_tpu_torch.cuda import poa_lockstep as pl
+
+    arrs, v, l, wb = kept["arrs"], kept["v"], kept["l"], kept["wb"]
+    idx = np.arange(n_lanes) % len(arrs[2])
+    tiled = [np.ascontiguousarray(a[idx]) for a in arrs]
+    kin = [torch.from_numpy(a).to(dev) for a in tiled]
+    kw = dict(v=v, l=l, p=16, k=128, wb=wb, match=5, mismatch=-4, gap=-8)
+    bufs = pl.lockstep_buffers(n_lanes, v, l, 128, wb, dev)
+    out = pl.poa_round(*kin, **kw, bufs=bufs)
+    torch.cuda.synchronize()
+    ms = statistics.median(cuda_ms(
+        lambda: pl.poa_round(*kin, **kw, bufs=bufs), 5))
+    ti = torch.from_numpy(idx)
+    diff = torch.stack([(o.cpu().long() - r[ti].long()).abs().amax(1)
+                        for o, r in zip(out, kept["ref"])]).amax(0)
+    ranks = np.minimum(tiled[2], v)
+    cols = pl.columns(l, wb)
+    cells = int(ranks.sum()) * cols
+    live = np.arange(v)[None, :] < ranks[:, None]
+    pred_rows = int(((tiled[1] >= 0) & live[:, :, None]).sum())
+    bms, by = bound(nbytes(*kin), nbytes(*out),
+                    *lockstep_ops(cells, pred_rows, cols))
+    return {"v": v, "l": l, "wb": wb, "cols": cols, "lanes": n_lanes,
+            "mismatches": int((diff > 0).sum()),
+            "max_abs_err": int(diff.max()), "kernel_ms": round(ms, 4),
+            "cells": cells, "bound_ms": bms, "bound_by": by,
+            "split": lockstep_split(kin, kw, ranks)}
 
 
 def lockstep_check(region, dev, threads) -> dict:
     """The lockstep kernel against its plain version on the card: three
     rounds (first, middle, last) of 8 real -w 1000 windows of the region
     (spread over depth), at the auto band (wb 512 for layers past 1,024)
-    and with -b (wb 256); the middle auto round at the kernel's wider
-    builds (bands of 1,024-4,096 columns, and 1,025 columns unbanded);
-    every round of the tiny windows at caps that take the unbanded
-    kernel (l_b 128); a constructed round whose preds lag past the
-    band's reach (wb 32).  Node and seq tapes must agree exactly."""
+    and with -b (wb 256); the middle auto round widened to bands of
+    1,024-16,384 columns (LOCKSTEP_WIDE: past 512 columns the kernel
+    walks a row tile by tile), and its lanes of layers up to 1,024 bases
+    at 1,025 columns unbanded; both middle rounds' lanes tiled to 500 in
+    one launch (each lane held to its plain tapes); every round of the
+    tiny windows at caps that take the unbanded kernel (l_b 128); a
+    constructed round whose preds lag past the band's reach (wb 32).
+    Node and seq tapes must agree exactly; every row carries the
+    kernel's phase split."""
     from racon_tpu_torch.core.polisher import PolisherType, create_polisher
     from racon_tpu_torch.core.window import WindowType
     from racon_tpu_torch.cuda.poa import CudaPoaBatchEngine
@@ -3481,25 +3595,24 @@ def lockstep_check(region, dev, threads) -> dict:
     wins = [wins[i] for i in plain_subset(wins, 8)]
     res = {"windows": len(wins),
            "depths": [len(w.sequences) - 1 for w in wins]}
-    rows, captured = [], {}
+    rows, captured, kept = [], {}, {}
     for name, banded in (("auto", False), ("b", True)):
         eng = CudaPoaBatchEngine(5, -4, -8, device=dev, vcap=4096,
                                  lcap=2048, banded=banded)
         n = max(len(eng._order_layers(w)) for w in wins)
         captured[name] = capture_rounds(eng, wins, {0, n // 2, n - 1})
-        res[name] = [dict(round=d, **round_check(a, v, l, wb, dev))
-                     for d, a, v, l, wb in captured[name]]
+        # the middle round's inputs and plain tapes: the tiled launch's
+        res[name] = [dict(round=d, **round_check(
+            a, v, l, wb, dev, keep=kept.setdefault(name, {}) if i == 1
+            else None))
+            for i, (d, a, v, l, wb) in enumerate(captured[name])]
         rows += res[name]
-    # the kernel's wider builds (4, 8 and 16 columns a thread): the
-    # middle auto round widened to the layer buckets of longer windows
-    # (bands of 1,024, 2,048 and 4,096 columns: -w above 1,024, 2,048
-    # and 4,096), and its lanes of layers up to 1,024 bases unbanded
-    # (1,025 columns)
+    # the middle auto round widened to the layer buckets of longer
+    # windows, and its lanes of layers up to 1,024 bases unbanded
     d, a, v, _, _ = captured["auto"][1]
     res["wide"] = [dict(round=d, **round_check(widen(a, lw), v, lw, ww,
                                                dev))
-                   for lw, ww in ((4096, 1024), (8192, 2048),
-                                  (16384, 4096))]
+                   for lw, ww in LOCKSTEP_WIDE]
     short = a[5] <= 1024
     if not short.any():
         raise RuntimeError("the middle round has no layer of 1,024 bases")
@@ -3507,6 +3620,11 @@ def lockstep_check(region, dev, threads) -> dict:
     a[4] = np.ascontiguousarray(a[4][:, :1024])
     res["wide"].append(dict(round=d, **round_check(a, v, 1024, 0, dev)))
     rows += res["wide"]
+    res["tiled"] = [dict(round=captured[name][1][0], part=name,
+                         **tiled_check(kept[name], dev,
+                                       LOCKSTEP_TILED_LANES))
+                    for name in ("auto", "b")]
+    rows += res["tiled"]
     eng = CudaPoaBatchEngine(5, -4, -8, device=dev, vcap=512, lcap=256)
     tiny = capture_rounds(eng, tiny_windows(random.Random(3),
                                             WindowType.TGS), None)
@@ -3588,16 +3706,129 @@ def polish_w1000(cli, cpu, work, data, inputs, truth, threads) -> dict:
     return first
 
 
+def wlong_native(cpu, work, threads) -> dict:
+    """polish_wlong's set (WLONG_SET, tools/simulate.py) and the native
+    CPU engine's polish of it at -w 20000 (the CLI without -c, a thread
+    a window), started as a process on the host: it runs while
+    lockstep_check does (none of it on the card)."""
+    from racon_tpu_torch.tools import simulate
+
+    data = os.path.join(work, "wlong")
+    paths = simulate.simulate(data, **WLONG_SET)
+    truth = read_fasta(os.path.join(data, "genome.fasta"))
+    scores = ["-m", "5", "-x", "-4", "-g", "-8", "-w", str(WLONG_W)]
+    out_path = os.path.join(work, "wlong_native.fasta")
+    with open(out_path, "wb") as out:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "racon_tpu_torch.cli", "-t",
+             str(min(threads, WLONG_NATIVE_THREADS)), *scores, *paths],
+            stdout=out, stderr=subprocess.DEVNULL, cwd=ROOT,
+            env=dict(os.environ, PYTHONPATH=ROOT,
+                     RACON_TPU_TORCH_CACHE="0"))
+    return {"paths": paths, "truth": truth, "argv": scores, "proc": proc,
+            "out": out_path, "draft_distance": chunked_distance(read_fasta(paths[2]), truth,
+                                               cpu)}
+
+
+def polish_wlong(cli, cpu, work, dev, threads, native) -> dict:
+    """The port's CLI at -w 20000 (refused before the kernel walked a row
+    tile by tile), staged, all on the card, cache off, on ``native``'s
+    set (``wlong_native``): wall, launches (the lockstep kernel's > 0),
+    lockstep rounds, rejects by code, every round's columns (one past
+    4,096 at least), the kernel's ms, and the first round past 4,096
+    columns, copied as it was dispatched (``round_spy``), its lane of
+    fewest ranks held against the plain version (``round_check``; the
+    plain version's time follows the ranks: lockstep_check holds 8 lanes
+    at 8,192 and 16,384 columns); distance to the truth <= the native
+    CPU engine's at the same -w x WLONG_NATIVE_SLACK."""
+    import numpy as np
+    from racon_tpu_torch.cuda import poa_lockstep as pl
+    from racon_tpu_torch.cuda.poa import CudaPoaBatchEngine
+    from racon_tpu_torch.tools.lockstep_rounds import round_spy
+
+    paths, truth, proc = native["paths"], native["truth"], native["proc"]
+    d_draft = native["draft_distance"]
+    argv = ["-t", str(threads), *native["argv"], "-c", "1",
+            "--cudaaligner-batches", "1"]
+    out_path = os.path.join(work, "wlong.fasta")
+    cols = []
+
+    def first_wide(_, v_b, l_b, wb):
+        cols.append(pl.columns(l_b, wb))
+        return cols[-1] > 4096 and max(cols[:-1], default=0) <= 4096
+
+    try:
+        with env_set(**STAGED_ENV, RACON_TPU_TORCH_CACHE="0"), \
+                round_spy(CudaPoaBatchEngine, first_wide) as first:
+            pol, wall, launches = counted_polish(cli, argv + list(paths),
+                                                 out_path, lockstep=True)
+        eng = pol.poa_engine
+        d_pol = chunked_distance(read_fasta(out_path), truth, cpu)
+        check = None
+        if first:
+            # its lane of fewest ranks against the plain version, while
+            # the native polish runs on
+            d, arrs, v, l, wb = first[0]
+            ranks = np.where(arrs[2] > 0, arrs[2], np.iinfo(np.int32).max)
+            lane = int(ranks.argmin())
+            arrs = [np.ascontiguousarray(a[lane:lane + 1]) for a in arrs]
+            check = dict(round=d, lane=lane,
+                         **round_check(arrs, v, l, wb, dev))
+        native_rc = proc.wait()
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    if native_rc != 0:
+        raise RuntimeError("polish_wlong: the native polish failed")
+    d_native = chunked_distance(read_fasta(native["out"]), truth, cpu)
+    line = {"set": WLONG_SET, "argv": argv, "wall_s": round(wall, 3),
+            "stage_walls_s": {k: round(v, 3)
+                              for k, v in pol.stage_walls.items()},
+            "launches": launches, "lockstep_rounds": eng.n_rounds,
+            "round_cols": cols, "widest_cols": max(cols, default=0),
+            "eligible_windows": pol.poa_eligible_windows,
+            "windows_on_kernel": eng.windows_on_kernel,
+            "rejected": {k: v for k, v in pol.poa_reject_counts.items()
+                         if v},
+            "kernel_ms": round(eng.kernel_ms, 3), "dp_cells": eng.cells,
+            "main_path_bound_ms": bound(0, 0, *lockstep_ops(eng.cells))[0],
+            "draft_distance": d_draft, "polished_distance": d_pol,
+            "native_distance": d_native}
+    if launches["poa_lockstep"] <= 0 or check is None:
+        emit("polish_wlong", **line)
+        raise RuntimeError("polish_wlong: no lockstep round past 4,096 "
+                           "columns reached the kernel")
+    line["first_wide"] = check
+    emit("polish_wlong", **line)
+    if line["first_wide"]["mismatches"]:
+        raise RuntimeError("polish_wlong: the kernel disagrees with its "
+                           "plain version on the first wide round")
+    if d_pol > d_native * WLONG_NATIVE_SLACK:
+        raise RuntimeError(f"polish_wlong: distance {d_pol} > the native "
+                           f"engine's {d_native} x {WLONG_NATIVE_SLACK}")
+    return line
+
+
 def lockstep_phase(cli, cpu, work, data, region, dev, inputs, truth,
                    threads) -> tuple:
-    """lockstep_check, then polish_w1000; returns both lines."""
-    lcheck = lockstep_check(region, dev, threads)
-    emit("lockstep_check", **lcheck)
-    if lcheck["mismatches"]:
-        raise RuntimeError(f"the lockstep kernel disagrees with its plain "
-                           f"version on {lcheck['mismatches']} lane(s)")
-    return lcheck, polish_w1000(cli, cpu, work, data, inputs, truth,
-                                threads)
+    """lockstep_check, polish_w1000, then polish_wlong (its native
+    polish on the host from the start); returns the first two lines."""
+    native = wlong_native(cpu, work, threads)
+    try:
+        lcheck = lockstep_check(region, dev, threads)
+        emit("lockstep_check", **lcheck)
+        if lcheck["mismatches"]:
+            raise RuntimeError(f"the lockstep kernel disagrees with its "
+                               f"plain version on {lcheck['mismatches']} "
+                               "lane(s)")
+        w1000 = polish_w1000(cli, cpu, work, data, inputs, truth, threads)
+        polish_wlong(cli, cpu, work, dev, threads, native)
+    finally:
+        if native["proc"].poll() is None:
+            native["proc"].kill()
+            native["proc"].wait()
+    return lcheck, w1000
 
 
 # ---------------------------------------------------------------------------
@@ -3671,9 +3902,10 @@ def scan_check(region, dev) -> dict:
     banded kernel at the ladder's three rungs and the full kernel, on
     the region's overlap pairs at their real lengths (6 spread over the
     pairs of at most 4,096 bases, at bucket 8,192 for hw 512 and the
-    full kernel and at 16,384 for hw 8,192; the 2 longest and 2 of the
-    6 at bucket 16,384 for hw 2,048: the plain version's time follows
-    the longest pair's diagonals), and the constructed edge pairs of
+    full kernel and at 16,384 for hw 8,192; 2 of the 6 at bucket 16,384
+    for hw 2,048: the plain version's time follows the longest pair's
+    diagonals, and the region's longest pairs, up to 15,511 bases, cost
+    it ~20 s), and the constructed edge pairs of
     tools/scan_pairs.py at bucket 1,024 (hw 0, 7 and 512).  Op tapes
     must agree exactly."""
     from racon_tpu_torch.cuda.aligner import BAND_LADDER
@@ -3684,10 +3916,10 @@ def scan_check(region, dev) -> dict:
                                                              pairs[k])))
     short = [k for k in order if max(map(len, pairs[k])) <= 4096]
     six = spread(short, 6)
-    four = sorted(set(spread(short, 2) + order[-2:]))
+    two = spread(short, 2)
     rows, checked = [], {}
     narrow, main_rung, wide = BAND_LADDER
-    for hw, idx, bd in ((narrow, six, 8192), (main_rung, four, 16384),
+    for hw, idx, bd in ((narrow, six, 8192), (main_rung, two, 16384),
                         (wide, six, 16384), (0, six, 8192)):
         qs = [pairs[k][0] for k in idx]
         ts = [pairs[k][1] for k in idx]
@@ -3922,7 +4154,8 @@ def main(argv=None) -> int:
                     "router, shards, failover, ranks, scrape, the wrapper "
                     "split and served, inspect --fleet, top --fleet and "
                     "explain); lockstep: env, build, dataset, "
-                    "lockstep_check and polish_w1000; scan: env, build, "
+                    "lockstep_check, polish_w1000 and polish_wlong; scan: "
+                    "env, build, "
                     "dataset, scan_check, scan_card, polish_scan and "
                     "polish_portable; "
                     "then exit 0 without the result line")

@@ -46,7 +46,7 @@ SIGNATURES = {
     "align_wfa": [_VP] * 9 + [_I] * 5 + [_VP],
     "align_band": [_VP] * 9 + [_I] * 7 + [_VP],
     "seed_words": [_VP] * 3 + [ctypes.c_longlong, _I, _VP],
-    "poa_lockstep": [_VP] * 10 + [_I] * 9 + [_VP],
+    "poa_lockstep": [_VP] * 11 + [_I] * 9 + [_VP],
     "align_scan": [_VP] * 8 + [_I] * 4 + [_VP],
 }
 
@@ -60,6 +60,9 @@ EXTRA = {"poa_full": {"poa_full_slots": ([_I] * 3, _I)},
                         "align_band_smem": ([_I] * 2, _I),
                         "align_band_warps": ([_I] * 2, _I),
                         "align_band_prepare": ([], _I)},
+         "poa_lockstep": {"poa_lockstep_prepare": ([], _I),
+                          "poa_lockstep_force": ([_I] * 2, _I),
+                          "poa_lockstep_plan": ([_I] * 4 + [_VP], None)},
          "align_scan": {"align_scan_roll_bytes": ([_I] * 3,
                                                   ctypes.c_longlong),
                         "align_scan_dir_bytes": ([_I] * 4,

@@ -487,12 +487,16 @@ class CudaPoaBatchEngine:
         args = [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
                 for a in (bases[:, :v_b], preds[:, :v_b], nrows,
                           sinks[:, :v_b], seq_arr[:, :l_b], slen)]
+        # the launch's buffers (and its kernels loaded) before the first
+        # mark: the event window holds the launch alone
+        bufs = pl.lockstep_buffers(int(bases.shape[0]), v_b, l_b,
+                                   self.KCAP, wb, dev)
         timer = DispatchTimer(dev, util)
         timer.mark()
         node_tape, seq_tape = pl.poa_round(
             *args, v=v_b, l=l_b, p=self.pcap, k=self.KCAP, wb=wb,
             match=self.match, mismatch=self.mismatch, gap=self.gap,
-            timer=timer)
+            timer=timer, bufs=bufs)
         if not timer.cuda:
             timer.mark()
         nt, stp = node_tape.cpu().numpy(), seq_tape.cpu().numpy()

@@ -32,7 +32,13 @@ in both.
 
 ``poa_round`` launches the kernel (``csrc/poa_lockstep.cu``) for CUDA
 tensors, counting each launch, and runs ``poa_round_reference`` for CPU
-tensors; on a CUDA tensor it launches or raises.
+tensors; on a CUDA tensor it launches or raises.  The kernel takes any
+width: a row wider than one warp's tile is walked tile by tile, so a
+round's only bounds are device memory (``lockstep_buffers``) and the
+block's shared memory (``plan``).  ``lockstep_buffers(..., timed=True)``
+adds ``meta`` ``[B, 9]`` int64: each lane's clock64() cycles of the
+kernel's phases (``PHASES``), its pred rows read from the device ring
+and its columns that took the rounding slow path (``COUNTS``).
 """
 
 from __future__ import annotations
@@ -51,9 +57,17 @@ PATH_DONE = -3      # walk finished
 
 NEG = -(1 << 28)    # -inf of the DP rows (float32-exact)
 N_SHIFT = 5         # a banded pred row may lag at most 4 quanta
-THREADS = 256       # the kernel's block: one lane (window) per block
-MAX_COLS = 16 * THREADS     # columns a block holds (16 per thread)
 MAX_P = 32
+#: ranks a round may hold: the kernel keeps a bitset of the rows it
+#: reads from its device ring (v bits) in shared memory
+MAX_V = 1 << 20
+#: ``meta``'s columns: the phases' clock64() cycles (warp 0's), then
+#: two counts
+PHASES = ("pred_fetch", "candidates", "scan", "codes", "sink", "barrier",
+          "traceback")
+COUNTS = ("far_pred_rows", "slow_columns")
+#: the kernel's builds: (columns a thread, warps a lane)
+BUILDS = ((4, 2), (4, 4), (8, 4))
 
 
 class _NativeBatch:
@@ -141,20 +155,80 @@ def check_inputs(bases, preds, nrows, sinks, seq, slen, *, v, l, p, k,
         raise ValueError(f"k={k} must be a power of two")
     if wb and (wb % 4 or wb < 4):
         raise ValueError(f"wb={wb} must be a positive multiple of 4")
-    if not (1 <= v and 1 <= l and 1 <= p <= MAX_P
-            and columns(l, wb) <= MAX_COLS
-            and v * (l + 1) < 2 ** 31 and (v + l) * max(b, 1) < 2 ** 31):
+    # every offset of the kernel's v x cols tape and its v + l tapes is
+    # 64-bit, and it walks a row of any width tile by tile
+    if not (1 <= v <= MAX_V and 1 <= l and 1 <= p <= MAX_P):
         raise ValueError(f"shape v={v} l={l} p={p} wb={wb} does not fit "
                          "the kernel")
     return b
 
 
+def plan(v: int, l: int, p: int, wb: int, device) -> dict:
+    """The kernel's plan for a round on the CUDA ``device``: columns a
+    thread, warps a lane, rows of its shared-memory ring, whether the
+    layer sits in shared memory, the block's shared bytes (0: it does
+    not fit)."""
+    from racon_tpu_torch.cuda import build
+
+    lib = build.load("poa_lockstep")
+    out = (ctypes.c_int * 5)()
+    with torch.cuda.device(device):
+        lib.poa_lockstep_plan(v, l, p, wb, out)
+    return dict(zip(("cols_per_thread", "warps", "shared_rows",
+                     "seq_in_shared", "shared_bytes"), out))
+
+
+def force_build(cols_per_thread: int = 0, warps: int = 0) -> None:
+    """Launch every later round of this process on one build (``BUILDS``;
+    0, 0: the build the kernel chooses by a round's columns), to time
+    the builds in turns on the same rounds."""
+    from racon_tpu_torch.cuda import build
+
+    if build.load("poa_lockstep").poa_lockstep_force(cols_per_thread,
+                                                     warps) != 0:
+        raise ValueError(f"no build of {cols_per_thread} columns a thread "
+                         f"and {warps} warps: {BUILDS}")
+
+
+def lockstep_buffers(b: int, v: int, l: int, k: int, wb: int, device,
+                     timed: bool = False) -> dict:
+    """Every buffer one round's launch writes, made on the CUDA
+    ``device`` before the launch (so a dispatch's event window holds the
+    launch alone), and the bound library with its kernels loaded: the
+    ring of 2k score rows (a pred row k back is never the slot its rank
+    writes), the direction tape, both output tapes and, ``timed``, the
+    phase counters.  Nothing on the CPU."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return {}
+    from racon_tpu_torch.cuda import build
+
+    cols = columns(l, wb)
+    out = {"key": (b, v, l, k, wb),
+           "lib": build.prepare("poa_lockstep", device),
+           "ring": torch.empty((b, 2 * k, cols), dtype=torch.float32,
+                               device=device),
+           "dirs": torch.empty((b, v, cols), dtype=torch.uint8,
+                               device=device),
+           "node_tape": torch.empty((b, v + l), dtype=torch.int32,
+                                    device=device),
+           "seq_tape": torch.empty((b, v + l), dtype=torch.int32,
+                                   device=device)}
+    if timed:
+        out["meta"] = torch.zeros((b, len(PHASES) + len(COUNTS)),
+                                  dtype=torch.int64, device=device)
+    return out
+
+
 def poa_round(bases, preds, nrows, sinks, seq, slen, *, v: int, l: int,
               p: int, k: int, wb: int, match: int, mismatch: int,
-              gap: int, timer=None) -> Tuple[torch.Tensor, torch.Tensor]:
+              gap: int, timer=None, bufs=None
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(node_tape, seq_tape) ``[B, V + L]`` int32 on the inputs' device.
-    CUDA tensors launch the kernel (one block per lane; ``timer``, a
-    ``devclock.DispatchTimer``, gets a mark after the launch), CPU
+    CUDA tensors launch the kernel (one block per lane) into ``bufs``
+    (``lockstep_buffers`` for this round, or buffers made here; with
+    ``meta`` the build that counts its phases); ``timer``, a
+    ``devclock.DispatchTimer``, gets a mark after the launch.  CPU
     tensors run the plain version."""
     b = check_inputs(bases, preds, nrows, sinks, seq, slen, v=v, l=l, p=p,
                      k=k, wb=wb)
@@ -166,25 +240,25 @@ def poa_round(bases, preds, nrows, sinks, seq, slen, *, v: int, l: int,
         raise ValueError(f"unsupported device {bases.device}")
     from racon_tpu_torch.cuda import build
 
-    lib = build.load("poa_lockstep")
     dev = bases.device
-    cols = columns(l, wb)
-    node_tape = torch.empty((b, v + l), dtype=torch.int32, device=dev)
-    seq_tape = torch.empty((b, v + l), dtype=torch.int32, device=dev)
+    if bufs is None:
+        bufs = lockstep_buffers(b, v, l, k, wb, dev)
+    elif bufs.get("key") != (b, v, l, k, wb):
+        raise ValueError(f"buffers for {bufs.get('key')}, not the round's "
+                         f"{(b, v, l, k, wb)}")
+    node_tape, seq_tape = bufs["node_tape"], bufs["seq_tape"]
     if b == 0:
         return node_tape, seq_tape
-    # the kernel's scratch: a ring of 2k score rows (a pred row k back
-    # is never the slot its rank writes) and the direction tape
-    ring = torch.empty((b, 2 * k, cols), dtype=torch.float32, device=dev)
-    dirs = torch.empty((b, v, cols), dtype=torch.uint8, device=dev)
+    meta = bufs.get("meta")
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
-        err = lib.poa_lockstep_launch(
+        err = bufs["lib"].poa_lockstep_launch(
             bases.data_ptr(), preds.data_ptr(), nrows.data_ptr(),
             sinks.data_ptr(), seq.data_ptr(), slen.data_ptr(),
-            ring.data_ptr(), dirs.data_ptr(), node_tape.data_ptr(),
-            seq_tape.data_ptr(), b, v, l, p, k, wb, match, mismatch, gap,
-            stream)
+            bufs["ring"].data_ptr(), bufs["dirs"].data_ptr(),
+            node_tape.data_ptr(), seq_tape.data_ptr(),
+            None if meta is None else meta.data_ptr(), b, v, l, p, k, wb,
+            match, mismatch, gap, stream)
     if err != 0:
         raise RuntimeError(f"poa_lockstep kernel launch failed: "
                            f"{build.error_string('poa_lockstep', err)} "

@@ -110,7 +110,7 @@ import torch
 
 from racon_tpu_torch import resolve_device
 from racon_tpu_torch.core import overlap as overlap_mod
-from racon_tpu_torch.core.overlap import InvalidInputError, Overlap
+from racon_tpu_torch.core.overlap import Overlap
 from racon_tpu_torch.core.polisher import Polisher
 from racon_tpu_torch.core.window import WindowLedger
 from racon_tpu_torch.cuda import align
@@ -120,8 +120,6 @@ from racon_tpu_torch.cuda import aligner as al
 from racon_tpu_torch.cuda import devclock
 from racon_tpu_torch.cuda import executor
 from racon_tpu_torch.cuda import poa_full as pf
-from racon_tpu_torch.cuda import poa_lockstep as pl
-from racon_tpu_torch.cuda.poa import lockstep_columns
 from racon_tpu_torch.obs import MetricAttr
 from racon_tpu_torch.obs import REGISTRY
 from racon_tpu_torch.obs import calhealth as obs_calhealth
@@ -257,16 +255,6 @@ class CudaPolisher(Polisher):
         self.cuda_banded_alignment = cuda_banded_alignment
         self.cuda_aligner_batches = cuda_aligner_batches
         self.device = resolve_device(device)
-        if cuda_poa_batches > 0:
-            # refuse a -w whose lockstep rounds would pass the kernel's
-            # block before any work: -w up to 8192, 16384 with -b
-            cols = lockstep_columns(self._poa_caps()[1],
-                                    cuda_banded_alignment)
-            if cols > pl.MAX_COLS:
-                raise InvalidInputError(
-                    f"window length {self.window_length} gives lockstep "
-                    f"rounds of {cols} columns, past the POA kernel's "
-                    f"{pl.MAX_COLS}!")
         self.max_align_dim = int(os.environ.get(
             "RACON_TPU_TORCH_MAX_ALIGN_DIM", self.MAX_ALIGN_DIM))
         # RACON_TPU_TORCH_PORTABLE=1: every POA megabatch on the

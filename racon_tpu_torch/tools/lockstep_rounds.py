@@ -4,7 +4,8 @@ windows, and one constructed to drive the banded kernel's lag drop.
 ``capture_rounds`` runs an engine's lockstep batch and keeps a copy of
 the arrays each round's launch received (at the round's shape), so the
 kernel, its plain version and the JAX kernels can be held against each
-other on real exports; ``widen`` puts such a round at a wider layer
+other on real exports; ``round_spy`` does the same for every engine of a
+run (a CLI polish) while it is open; ``widen`` puts such a round at a wider layer
 bucket, so real graphs reach the kernel's wider builds.  ``lag_round`` builds a round whose extra
 in-edges reach up to ``k`` ranks back: at a narrow band (wb 32, band
 quantum 8) such a pred's band lags 5 or more quanta, a path real
@@ -14,11 +15,51 @@ kernel reads the pred row as -inf.
 
 from __future__ import annotations
 
-from typing import List, Optional, Set, Tuple
+import contextlib
+from typing import Callable, List, Optional, Set, Tuple
 
 import numpy as np
 
 Round = Tuple[int, List[np.ndarray], int, int, int]
+
+
+@contextlib.contextmanager
+def round_spy(target, keep: Callable[[int, int, int, int], bool]):
+    """While open, copy each round that ``target`` (an engine, or the
+    engine class: every engine of the process) dispatches and
+    ``keep(round, v_b, l_b, wb)`` accepts into the yielded list, as
+    (round, [bases, preds, nrows, sinks, seq, slen] at the round's
+    shape, v_b, l_b, wb)."""
+    rounds: List[Round] = []
+    is_class = isinstance(target, type)
+    orig = target._dispatch
+
+    def record(engine, bases, preds, nrows, sinks, seq_arr, slen, st):
+        v_b, l_b, wb = engine.round_shape(nrows, slen)
+        if keep(st.rounds, v_b, l_b, wb):
+            arrs = [np.ascontiguousarray(a).copy() for a in (
+                bases[:, :v_b], preds[:, :v_b], nrows, sinks[:, :v_b],
+                seq_arr[:, :l_b], slen)]
+            rounds.append((st.rounds, arrs, v_b, l_b, wb))
+
+    if is_class:
+        def spy(self, bases, preds, nrows, sinks, seq_arr, slen, util, st):
+            record(self, bases, preds, nrows, sinks, seq_arr, slen, st)
+            return orig(self, bases, preds, nrows, sinks, seq_arr, slen,
+                        util, st)
+    else:
+        def spy(bases, preds, nrows, sinks, seq_arr, slen, util, st):
+            record(target, bases, preds, nrows, sinks, seq_arr, slen, st)
+            return orig(bases, preds, nrows, sinks, seq_arr, slen, util,
+                        st)
+    target._dispatch = spy
+    try:
+        yield rounds
+    finally:
+        if is_class:
+            target._dispatch = orig
+        else:
+            del target._dispatch
 
 
 def capture_rounds(engine, windows, keep: Optional[Set[int]] = None
@@ -27,23 +68,9 @@ def capture_rounds(engine, windows, keep: Optional[Set[int]] = None
     of each round of ``keep`` (round indices; None: every round): (round,
     [bases, preds, nrows, sinks, seq, slen] at the round's shape, v_b,
     l_b, wb)."""
-    rounds = []
-    orig = engine._dispatch
-
-    def spy(bases, preds, nrows, sinks, seq_arr, slen, util, st):
-        v_b, l_b, wb = engine.round_shape(nrows, slen)
-        if keep is None or st.rounds in keep:
-            arrs = [np.ascontiguousarray(a).copy() for a in (
-                bases[:, :v_b], preds[:, :v_b], nrows, sinks[:, :v_b],
-                seq_arr[:, :l_b], slen)]
-            rounds.append((st.rounds, arrs, v_b, l_b, wb))
-        return orig(bases, preds, nrows, sinks, seq_arr, slen, util, st)
-
-    engine._dispatch = spy
-    try:
+    with round_spy(engine, lambda d, *_: keep is None or d in keep) \
+            as rounds:
         engine.lockstep_batch(windows, True)
-    finally:
-        del engine._dispatch
     return rounds
 
 

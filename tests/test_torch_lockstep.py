@@ -10,9 +10,10 @@ backend; every score is an integer held exactly in float32 and the
 rounding near -2**28 is IEEE's in both, so node and seq tapes must be
 equal, tolerance 0.  Engine: the port's lockstep batch and the JAX
 engine's (its lockstep path on the CPU) give the same consensus bytes
-and reject counts.  End to end: ``-w 1000`` polishes, byte-identical
-to the JAX package's CLI (the port raised there before the lockstep
-engine).  The JAX package is imported inside the tests only, so
+and reject counts.  End to end: ``-w 1000`` and ``-w 10000`` polish,
+byte-identical to the JAX package's CLI (the port raised at the first
+before the lockstep engine, at the second before the kernel walked a
+row tile by tile).  The JAX package is imported inside the tests only, so
 ``pytest -m cuda`` on the card imports no JAX; the ``cuda`` test holds
 the kernel against its plain version there.
 """
@@ -31,10 +32,10 @@ from racon_tpu_torch import cache, cli
 from racon_tpu_torch.core.window import Window, WindowType
 from racon_tpu_torch.cuda import poa_lockstep as pl
 from racon_tpu_torch.cuda.poa import CudaPoaBatchEngine
-from racon_tpu_torch.core.overlap import InvalidInputError
 from racon_tpu_torch.core.polisher import PolisherType, create_polisher
 from racon_tpu_torch.tools.lockstep_rounds import (capture_rounds, lag_round,
                                                    max_band_lag, widen)
+from racon_tpu_torch.utils.tuning import poa_band_cols, pow2_at_least
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SCORES = dict(match=5, mismatch=-4, gap=-8)
@@ -173,16 +174,22 @@ def test_round_reference_matches_jax_kernel(exported, case, l_b, wb):
     assert short
 
 
-@pytest.mark.parametrize("case,l,wb", [("l2048", 4096, 1024),
-                                       ("l1024", 1024, 0)])
-def test_round_reference_matches_jax_kernel_wide(exported, case, l, wb):
-    """Real rounds at the kernel's wider builds: widened to a 4,096-base
-    layer bucket (the band of 1,024 columns that -w above 1,024 gives),
-    and a 1,024-base row unbanded (1,025 columns)."""
+@pytest.mark.parametrize("case,l,wb,lanes", [("l2048", 4096, 1024, 3),
+                                             ("l1024", 1024, 0, 2),
+                                             ("l1024", 32768, 8192, 1),
+                                             ("l1024", 65536, 16384, 1)])
+def test_round_reference_matches_jax_kernel_wide(exported, case, l, wb,
+                                                 lanes):
+    """Real rounds at wider shapes: widened to a 4,096-base layer bucket
+    (the band of 1,024 columns that -w above 1,024 gives), a 1,024-base
+    row unbanded (1,025 columns), and bands of 8,192 and 16,384 columns
+    (-w above 8,192 and 16,384: layers past 16,384 and 32,768 bases),
+    which the kernel walks tile by tile; at those two the first lane
+    alone (both versions' time follows the lanes x columns)."""
     rounds = exported[case]
     assert rounds
     for arrs, v_b, _, _ in rounds:
-        arrs = widen(arrs, l)
+        arrs = [np.ascontiguousarray(a[:lanes]) for a in widen(arrs, l)]
         want = jax_round(arrs, v_b, l, 16, 128, wb)
         got = port_round(arrs, v_b, l, 16, 128, wb)
         np.testing.assert_array_equal(got[0], want[0])
@@ -220,6 +227,28 @@ def test_poa_round_checks_its_inputs():
     meta = [x.to("meta") for x in t]
     with pytest.raises(ValueError, match="unsupported device"):
         pl.poa_round(*meta, v=v, l=l, p=p, k=k, wb=0, **SCORES)
+
+
+@pytest.mark.parametrize("wb", [8192, 16384])
+def test_check_inputs_takes_wide_rounds(wb):
+    """A banded round the JAX kernel takes passes the input check: v_b
+    32,768 at a 65,536-base layer bucket (v * (l + 1) past 2**31, which
+    the check once refused; the kernel's offsets are 64-bit); only a v
+    past MAX_V (the kernel's shared bitset of ranks) is refused."""
+    v, l, p = 32768, 65536, 16
+
+    def arrays(v):
+        return (torch.zeros((1, v), dtype=torch.uint8),
+                torch.zeros((1, v, p), dtype=torch.int16),
+                torch.ones(1, dtype=torch.int32),
+                torch.zeros((1, v), dtype=torch.uint8),
+                torch.zeros((1, l), dtype=torch.uint8),
+                torch.ones(1, dtype=torch.int32))
+
+    assert pl.check_inputs(*arrays(v), v=v, l=l, p=p, k=128, wb=wb) == 1
+    big = pl.MAX_V + 1
+    with pytest.raises(ValueError, match="does not fit"):
+        pl.check_inputs(*arrays(big), v=big, l=l, p=p, k=128, wb=wb)
 
 
 # ---------------------------------------------------------------------------
@@ -364,23 +393,59 @@ def test_w1000_polishes_like_jax(w1000_set, banded, monkeypatch):
         == pol.poa_eligible_windows
 
 
-@pytest.mark.parametrize("w,banded,ok", [(8192, False, True),
-                                         (8193, False, False),
-                                         (16384, True, True),
-                                         (16385, True, False)])
-def test_window_length_past_the_kernel_is_refused(w1000_set, w, banded, ok):
-    """A -w whose lockstep rounds would pass the kernel's 4,096 columns
-    is refused when the polisher is made, before any work."""
-    def make():
-        return create_polisher(*w1000_set, PolisherType.kC, w, 10.0, 0.3,
-                               True, 5, -4, -8, 1, cuda_poa_batches=1,
-                               cuda_banded_alignment=banded, device="cpu")
+@pytest.mark.parametrize("banded", [False, True], ids=["auto", "b"])
+@pytest.mark.parametrize("w", [8193, 16385, 20000, 40000])
+def test_window_length_past_the_kernel_is_refused(w1000_set, w, banded):
+    """No -w is refused any more: a -w whose lockstep rounds pass 4,096
+    columns (above 8,192, 16,384 with -b) once raised InvalidInputError
+    when the polisher was made; the kernel now walks a row of any width
+    tile by tile, so the polisher is made, with the caps the JAX
+    package takes."""
+    pol = create_polisher(*w1000_set, PolisherType.kC, w, 10.0, 0.3, True,
+                          5, -4, -8, 1, cuda_poa_batches=1,
+                          cuda_banded_alignment=banded, device="cpu")
+    try:
+        vcap, lcap = pol._poa_caps()
+        assert (vcap, lcap) == (pow2_at_least(4 * w, 512),
+                                pow2_at_least(2 * w, 512))
+        # the widest round's columns: past the old 4,096 (with -b past
+        # -w 16,384)
+        cols = pl.columns(lcap, poa_band_cols(lcap, banded))
+        assert cols > 4096 or (banded and w <= 16384)
+    finally:
+        pol.close()
 
-    if ok:
-        make().close()
-    else:
-        with pytest.raises(InvalidInputError, match="columns"):
-            make()
+
+@pytest.fixture(scope="module")
+def w10000_set(tmp_path_factory):
+    from racon_tpu.tools import simulate
+
+    out = tmp_path_factory.mktemp("wlong")
+    return simulate.simulate(str(out), genome_len=4000, coverage=3,
+                             read_len=2000, seed=5, ont=True)
+
+
+def test_w10000_polishes_like_jax(w10000_set, monkeypatch):
+    """The port's CLI at -w 10000 (caps V 65,536, LP 32,768; the set's
+    one window on the lockstep engine's plain version here, 6 rounds)
+    writes the JAX package's bytes; before the kernel walked its rows
+    tile by tile the polisher refused this -w."""
+    flags = ["-c", "1", "-w", "10000"]
+    monkeypatch.setenv("RACON_TPU_TORCH_POA_DEVICE_ONLY", "1")
+    monkeypatch.setenv("RACON_TPU_TORCH_CACHE_DIR", "")
+    buf = io.BytesIO()
+    pol = cli.main(["--device", "cpu", "-t", "1", *flags, *w10000_set],
+                   out=buf)
+    env = dict(os.environ, RACON_TPU_POA_DEVICE_ONLY="1",
+               RACON_TPU_PIPELINE="0", JAX_PLATFORMS="cpu",
+               PYTHONPATH=ROOT)
+    jax_out = subprocess.run(
+        [sys.executable, "-m", "racon_tpu.cli", "-t", "1", *flags,
+         *w10000_set], env=env, cwd=ROOT, capture_output=True, check=True)
+    assert buf.getvalue() == jax_out.stdout
+    assert buf.getvalue().startswith(b">")
+    assert pol.poa_engine.n_rounds > 0
+    assert pol.poa_device_windows > 0
 
 
 # ---------------------------------------------------------------------------
@@ -391,10 +456,11 @@ def test_window_length_past_the_kernel_is_refused(w1000_set, w, banded, ok):
 def test_kernel_matches_plain_on_card():
     """The CUDA kernel against its plain version on the card, on
     exported rounds at the engine's three shapes, on rounds widened to
-    each wider build of the kernel (bands of 1,024, 2,048 and 4,096
-    columns; a 1,024-base row unbanded) and on the constructed lag-drop
-    rounds (needs a GPU and nvcc; run with ``pytest -m cuda`` on the
-    card)."""
+    wider rows (bands of 1,024 to 16,384 columns, walked tile by tile;
+    a 1,024-base row unbanded), on the constructed lag-drop rounds, and
+    a 500-lane launch of a real round's lanes tiled (a -w 1000
+    megabatch's width) held lane for lane to its plain version (needs a
+    GPU and nvcc; run with ``pytest -m cuda`` on the card)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     rng = random.Random(7)
@@ -407,7 +473,8 @@ def test_kernel_matches_plain_on_card():
                    in capture(wins, vcap=vcap, lcap=lcap)]
     a, v = rounds[-1][:2]
     rounds += [(widen(a, l), v, l, 16, 128, wb)
-               for l, wb in ((4096, 1024), (8192, 2048), (16384, 4096))]
+               for l, wb in ((4096, 1024), (8192, 2048), (16384, 4096),
+                             (32768, 8192), (65536, 16384))]
     a, v, l = next(r[:3] for r in rounds if r[2] == 1024)
     rounds.append((a, v, l, 16, 128, 0))
     arrs, v, l, p, k = lag_round()
@@ -419,3 +486,13 @@ def test_kernel_matches_plain_on_card():
                                      **SCORES)
         np.testing.assert_array_equal(want[0], ref[0].numpy())
         np.testing.assert_array_equal(want[1], ref[1].numpy())
+    # 500 lanes in one launch: the 2,048-base round's lanes tiled
+    a, v, l, p, k, wb = next(r for r in rounds if r[2] == 2048)
+    n = a[0].shape[0]
+    idx = np.arange(500) % n
+    tiled = [np.ascontiguousarray(x[idx]) for x in a]
+    got = port_round(tiled, v, l, p, k, wb, "cuda")
+    t = [torch.from_numpy(x) for x in a]
+    ref = pl.poa_round_reference(*t, v=v, l=l, p=p, k=k, wb=wb, **SCORES)
+    np.testing.assert_array_equal(got[0], ref[0].numpy()[idx])
+    np.testing.assert_array_equal(got[1], ref[1].numpy()[idx])
