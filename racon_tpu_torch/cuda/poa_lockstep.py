@@ -320,14 +320,12 @@ def poa_round_reference(bases, preds, nrows, sinks, seq, slen, *, v: int,
         nr = nrows_l.clamp(min=1)
         smax_q = _floordiv((slen_l + 1 - wb).clamp(min=0) + q - 1, q)
 
-        def band_start_q(r):
-            """Quantised band start of DP row(s) ``r`` ([B] or [B, P])."""
-            if r.dim() == 2:
-                c = _floordiv(_floordiv(r * slen_l[:, None], nr[:, None])
-                              - wb // 2, q)
-                return torch.minimum(c.clamp(min=0), smax_q[:, None])
-            c = _floordiv(_floordiv(r * slen_l, nr) - wb // 2, q)
-            return torch.minimum(c.clamp(min=0), smax_q)
+        # every DP row's quantised band start, [B, rmax + 1] (row 0, the
+        # virtual start row, is never read through it)
+        rows = torch.arange(rmax + 1, dtype=torch.int64, device=dev)
+        sq_all = torch.minimum(_floordiv(
+            _floordiv(rows[None, :] * slen_l[:, None], nr[:, None])
+            - wb // 2, q).clamp(min=0), smax_q[:, None])
 
         ext = torch.arange(wb + 1, dtype=torch.int64, device=dev)
         neg_pad = neg.expand(b, p, N_SHIFT * q)
@@ -339,9 +337,9 @@ def poa_round_reference(bases, preds, nrows, sinks, seq, slen, *, v: int,
         g1 = ring[lanes[:, None], slot]                      # [B, P, cols]
         base_r = bases_l[:, r - 1]
         if wb:
-            sq_r = band_start_q(torch.full_like(nrows_l, r))
+            sq_r = sq_all[:, r]
             s_r = sq_r * q
-            dq = sq_r[:, None] - band_start_q(pidx)
+            dq = sq_r[:, None] - sq_all.gather(1, pidx.clamp(min=0))
             g1_pad = torch.cat([neg_p1, g1, neg_pad], dim=2)
             hp = neg_ext
             for m in range(N_SHIFT):
@@ -396,7 +394,8 @@ def poa_round_reference(bases, preds, nrows, sinks, seq, slen, *, v: int,
         if bool(done.all()):
             break                   # PATH_DONE from here on, as filled
         rm1 = (r - 1).clamp(min=0)
-        c = (j - band_start_q(r) * q).clamp(0, wb - 1) if wb else j
+        c = (j - sq_all.gather(1, r[:, None])[:, 0] * q).clamp(0, wb - 1) \
+            if wb else j
         code = dir_rows[rm1.clamp(max=dir_rows.shape[0] - 1), lanes, c] \
             .to(torch.int64)
         live = r > 0
