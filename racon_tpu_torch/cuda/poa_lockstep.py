@@ -33,7 +33,7 @@ in both.
 ``poa_round`` launches the kernel (``csrc/poa_lockstep.cu``) for CUDA
 tensors, counting each launch, and runs ``poa_round_reference`` for CPU
 tensors; on a CUDA tensor it launches or raises.  The kernel takes any
-width: a row wider than one warp's tile is walked tile by tile, so a
+width: a row wider than one block's tile is walked tile by tile, so a
 round's only bounds are device memory (``lockstep_buffers``) and the
 block's shared memory (``plan``).  ``lockstep_buffers(..., timed=True)``
 adds ``meta`` ``[B, 9]`` int64: each lane's clock64() cycles of the
