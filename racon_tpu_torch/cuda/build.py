@@ -61,7 +61,6 @@ EXTRA = {"poa_full": {"poa_full_slots": ([_I] * 3, _I)},
                         "align_band_warps": ([_I] * 2, _I),
                         "align_band_prepare": ([], _I)},
          "poa_lockstep": {"poa_lockstep_prepare": ([], _I),
-                          "poa_lockstep_force": ([_I] * 2, _I),
                           "poa_lockstep_plan": ([_I] * 4 + [_VP], None)},
          "align_scan": {"align_scan_roll_bytes": ([_I] * 3,
                                                   ctypes.c_longlong),

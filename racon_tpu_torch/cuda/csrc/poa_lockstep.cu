@@ -665,15 +665,9 @@ poa_lockstep_kernel(const uint8_t* __restrict__ bases,
 // host side
 // ---------------------------------------------------------------------------
 
-// columns a thread and warps a lane of every later round (0, 0: by the
-// round's columns, choose_build); poa_lockstep_force sets them
-int g_force_cpt = 0, g_force_warps = 0;
-
+// columns a thread and warps a lane of a round of ``cols`` columns
 void choose_build(int cols, int* cpt, int* warps) {
-    if (g_force_cpt) {
-        *cpt = g_force_cpt;
-        *warps = g_force_warps;
-    } else if (cols <= 8 * kWarp) {
+    if (cols <= 8 * kWarp) {
         *cpt = 4;
         *warps = 2;
     } else if (cols <= 16 * kWarp) {
@@ -751,13 +745,8 @@ cudaError_t prepare_one(int limit) {
 template <int CPT, int W, bool BANDED, bool TIMED>
 cudaError_t launch_one(const Args& a, const Plan& pl, int b,
                        cudaStream_t s) {
+    // poa_lockstep_prepare opted every instantiation in to the limit
     auto kern = poa_lockstep_kernel<CPT, W, BANDED, TIMED>;
-    if (pl.smem > 48 * 1024) {
-        cudaError_t e = cudaFuncSetAttribute(
-            kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-            (int)pl.smem);
-        if (e != cudaSuccess) return e;
-    }
     kern<<<b, kWarp * W, pl.smem, s>>>(
         a.bases, a.preds, a.nrows, a.sinks, a.seq, a.slen, a.ring, a.dirs,
         a.nt, a.st, a.meta, a.v, a.l, a.p, a.k, a.wb, pl.s_rows, pl.seq_in,
@@ -805,21 +794,6 @@ int poa_lockstep_prepare() {
     POA_LOCKSTEP_BUILDS(X)
 #undef X
     return (int)e;
-}
-
-// Launch every later round on the build of ``cpt`` columns a thread and
-// ``warps`` warps a lane (0, 0: the build chosen by the round's
-// columns), to time the builds on the same rounds.  Returns 0, or -1
-// for a build the library does not hold.
-int poa_lockstep_force(int cpt, int warps) {
-    bool known = cpt == 0 && warps == 0;
-#define X(C, W) known = known || (cpt == C && warps == W);
-    POA_LOCKSTEP_BUILDS(X)
-#undef X
-    if (!known) return -1;
-    g_force_cpt = cpt;
-    g_force_warps = warps;
-    return 0;
 }
 
 // The plan of a round on the current device: out[0] columns a thread,

@@ -66,8 +66,6 @@ MAX_V = 1 << 20
 PHASES = ("pred_fetch", "candidates", "scan", "codes", "sink", "barrier",
           "traceback")
 COUNTS = ("far_pred_rows", "slow_columns")
-#: the kernel's builds: (columns a thread, warps a lane)
-BUILDS = ((4, 2), (4, 4), (8, 4))
 
 
 class _NativeBatch:
@@ -178,18 +176,6 @@ def plan(v: int, l: int, p: int, wb: int, device) -> dict:
                      "seq_in_shared", "shared_bytes"), out))
 
 
-def force_build(cols_per_thread: int = 0, warps: int = 0) -> None:
-    """Launch every later round of this process on one build (``BUILDS``;
-    0, 0: the build the kernel chooses by a round's columns), to time
-    the builds in turns on the same rounds."""
-    from racon_tpu_torch.cuda import build
-
-    if build.load("poa_lockstep").poa_lockstep_force(cols_per_thread,
-                                                     warps) != 0:
-        raise ValueError(f"no build of {cols_per_thread} columns a thread "
-                         f"and {warps} warps: {BUILDS}")
-
-
 def lockstep_buffers(b: int, v: int, l: int, k: int, wb: int, device,
                      timed: bool = False) -> dict:
     """Every buffer one round's launch writes, made on the CUDA
@@ -284,9 +270,10 @@ def poa_round_reference(bases, preds, nrows, sinks, seq, slen, *, v: int,
     """The kernel's function in plain PyTorch, same inputs and outputs as
     ``poa_round``: both JAX kernels' float32 arithmetic written out, a
     Python loop over ranks vectorised over the batch on the inputs'
-    device.  Ranks past the deepest lane's ``nrows`` and traceback steps
-    after every lane's walk ended are left out: no traceback reads
-    them."""
+    device, then each lane's traceback walked on the host from the
+    direction codes (one step a move, as the JAX kernels walk it).
+    Ranks past the deepest lane's ``nrows`` are left out: no traceback
+    reads them."""
     b = check_inputs(bases, preds, nrows, sinks, seq, slen, v=v, l=l, p=p,
                      k=k, wb=wb)
     dev = bases.device
@@ -301,68 +288,79 @@ def poa_round_reference(bases, preds, nrows, sinks, seq, slen, *, v: int,
     ci = torch.arange(cols, dtype=torch.int64, device=dev)
     cg = ci.to(f32) * gap                           # j * gap, exact
     neg = torch.tensor(float(NEG), dtype=f32, device=dev)
-    preds_l = preds.to(torch.int64)
-    seq_l = seq.to(torch.int64)
-    bases_l = bases.to(torch.int64)
+    s_match = torch.tensor(float(match), dtype=f32, device=dev)
+    s_mismatch = torch.tensor(float(mismatch), dtype=f32, device=dev)
     nrows_l = nrows.to(torch.int64)
     slen_l = slen.to(torch.int64)
-    ring = torch.full((b, k, cols), float(NEG), dtype=f32, device=dev)
-    best_score = torch.full((b,), float(NEG), dtype=f32, device=dev)
-    best_row = torch.zeros(b, dtype=torch.int64, device=dev)
     rmax = min(v, int(nrows_l.max()))
+    ring = torch.full((b, k, cols), float(NEG), dtype=f32, device=dev)
     dir_rows = torch.zeros((max(rmax, 1), b, cols), dtype=torch.uint8,
+                           device=dev)
+    end_score = torch.full((b, max(rmax, 1)), float(NEG), dtype=f32,
                            device=dev)
     neg_p1 = neg.expand(b, p, 1)
     neg_b1 = neg.expand(b, 1)
+    # what no score depends on, for every rank at once: the base, the
+    # preds' ring slots, which preds are rows and which the start row
+    bases_l = bases[:, :rmax].to(torch.int64)
+    preds_l = preds[:, :rmax].to(torch.int64)
+    slots = (preds_l - 1) & (k - 1)
+    is_start = (preds_l == 0)[..., None]
+    rows = torch.arange(rmax + 1, dtype=torch.int64, device=dev)
+    sink_row = (sinks[:, :rmax] > 0) & (rows[None, 1:] <= nrows_l[:, None])
 
     if wb:
         q = wb // 4
         nr = nrows_l.clamp(min=1)
         smax_q = _floordiv((slen_l + 1 - wb).clamp(min=0) + q - 1, q)
-
         # every DP row's quantised band start, [B, rmax + 1] (row 0, the
         # virtual start row, is never read through it)
-        rows = torch.arange(rmax + 1, dtype=torch.int64, device=dev)
         sq_all = torch.minimum(_floordiv(
             _floordiv(rows[None, :] * slen_l[:, None], nr[:, None])
             - wb // 2, q).clamp(min=0), smax_q[:, None])
-
+        s_all = sq_all * q
+        # a pred row lagging m < N_SHIFT quanta: its band shifted by m * q
+        dq = sq_all[:, 1:, None] - sq_all.gather(
+            1, preds_l.clamp(min=0).flatten(1)).view(b, rmax, p)
+        lag_ok = ((dq >= 0) & (dq < N_SHIFT) & (preds_l > 0))[..., None]
+        lag_at = (dq.clamp(0, N_SHIFT - 1) * q)[..., None]
         ext = torch.arange(wb + 1, dtype=torch.int64, device=dev)
         neg_pad = neg.expand(b, p, N_SHIFT * q)
-        neg_ext = neg.expand(b, p, wb + 1)
+        # the start row's value at band column c (sequence index j = s +
+        # c - 1), and the layer shifted one so that index 0 is j = -1;
+        # off the layer no base matches
+        span = max(int(s_all.max()) + wb, l) + 1
+        jv = torch.arange(span, dtype=torch.int64, device=dev) - 1
+        v_row = torch.where(jv >= 0, jv.to(f32) * gap, neg)
+        seq_ext = torch.full((b, span), -1, dtype=torch.int64, device=dev)
+        seq_ext[:, 1:l + 1] = seq.to(torch.int64)
+        seq_ext[:, 1:][jv[None, 1:] >= slen_l[:, None]] = -1
+        c_end = slen_l[:, None] - s_all[:, 1:]
+        end_ok = c_end < wb
+        end_col = c_end.clamp(0, wb - 1)
+    else:
+        seq_l = seq.to(torch.int64)
+        has_pred = (preds_l > 0)[..., None]
 
     for r in range(1, rmax + 1):
-        pidx = preds_l[:, r - 1, :]                          # [B, P]
-        slot = (pidx - 1) & (k - 1)
-        g1 = ring[lanes[:, None], slot]                      # [B, P, cols]
-        base_r = bases_l[:, r - 1]
+        g1 = ring[lanes[:, None], slots[:, r - 1]]           # [B, P, cols]
+        base_r = bases_l[:, r - 1, None]
         if wb:
-            sq_r = sq_all[:, r]
-            s_r = sq_r * q
-            dq = sq_r[:, None] - sq_all.gather(1, pidx.clamp(min=0))
+            at = s_all[:, r, None] + ext                     # [B, wb + 1]
             g1_pad = torch.cat([neg_p1, g1, neg_pad], dim=2)
-            hp = neg_ext
-            for m in range(N_SHIFT):
-                hp = torch.where((dq == m)[:, :, None],
-                                 g1_pad[:, :, m * q: m * q + wb + 1], hp)
-            j_ext = s_r[:, None] + ext[None, :] - 1
-            vv = torch.where(j_ext >= 0, j_ext.to(f32) * gap, neg)
-            hp = torch.where((pidx > 0)[:, :, None], hp,
-                             torch.where((pidx == 0)[:, :, None],
-                                         vv[:, None, :], neg))
-            j_sub = s_r[:, None] + ci[None, :] - 1           # seq index
-            sb = seq_l.gather(1, j_sub.clamp(0, l - 1))
-            sub_ok = (j_sub >= 0) & (j_sub < slen_l[:, None]) \
-                & (sb == base_r[:, None])
-            sub = torch.where(sub_ok, match, mismatch).to(f32)
+            hp = torch.where(lag_ok[:, r - 1],
+                             g1_pad.gather(2, lag_at[:, r - 1] + ext),
+                             torch.where(is_start[:, r - 1],
+                                         v_row[at][:, None, :], neg))
+            sub = torch.where(seq_ext.gather(1, at[:, :wb]) == base_r,
+                              s_match, s_mismatch)
             diag = hp[:, :, :wb] + sub[:, None, :]
             vert = hp[:, :, 1:] + gap
         else:
-            hp = torch.where((pidx > 0)[:, :, None], g1,
-                             torch.where((pidx == 0)[:, :, None],
+            hp = torch.where(has_pred[:, r - 1], g1,
+                             torch.where(is_start[:, r - 1],
                                          cg[None, None, :], neg))
-            sub = torch.where(seq_l == base_r[:, None], match,
-                              mismatch).to(f32)               # [B, L]
+            sub = torch.where(seq_l == base_r, s_match, s_mismatch)
             diag = torch.cat([neg_p1, hp[:, :, :-1] + sub[:, None, :]],
                              dim=2)
             vert = hp + gap
@@ -375,39 +373,46 @@ def poa_round_reference(bases, preds, nrows, sinks, seq, slen, *, v: int,
         dir_rows[r - 1] = (cand == hr[:, None, :]).to(torch.uint8) \
             .argmax(dim=1).to(torch.uint8)
         ring[:, (r - 1) & (k - 1)] = hr
-        # fold sink-row end scores (the earliest rank wins ties)
-        is_sink = (sinks[:, r - 1] > 0) & (r <= nrows_l)
-        if wb:
-            c_end = slen_l - s_r
-            s_end = hr.gather(1, c_end.clamp(0, wb - 1)[:, None])[:, 0]
-            better = is_sink & (c_end < wb) & (s_end > best_score)
-        else:
-            s_end = hr[lanes, slen_l]
-            better = is_sink & (s_end > best_score)
-        best_score = torch.where(better, s_end, best_score)
-        best_row = torch.where(better, torch.full_like(best_row, r),
-                               best_row)
+        # the row's score at the layer's end, for the sink fold
+        end_score[:, r - 1] = hr.gather(1, end_col[:, r - 1, None])[:, 0] \
+            if wb else hr[lanes, slen_l]
 
-    r, j = best_row, slen_l.clone()
-    for t in range(v + l):
-        done = (r == 0) & (j == 0)
-        if bool(done.all()):
-            break                   # PATH_DONE from here on, as filled
-        rm1 = (r - 1).clamp(min=0)
-        c = (j - sq_all.gather(1, r[:, None])[:, 0] * q).clamp(0, wb - 1) \
-            if wb else j
-        code = dir_rows[rm1.clamp(max=dir_rows.shape[0] - 1), lanes, c] \
-            .to(torch.int64)
-        live = r > 0
-        is_diag = (code < p) & live
-        is_vert = (code >= p) & (code < 2 * p) & live
-        step = is_diag | is_vert
-        slot = torch.where(is_diag, code, code - p).clamp(0, p - 1)
-        pred_r = preds_l[lanes, rm1, slot]
-        node = torch.where(step, r - 1, PATH_NONE)
-        spos = torch.where(is_vert, PATH_NONE, j - 1)
-        node_tape[:, t] = torch.where(done, PATH_DONE, node).to(torch.int32)
-        seq_tape[:, t] = torch.where(done, PATH_DONE, spos).to(torch.int32)
-        r = torch.where(done | ~step, r, pred_r)
-        j = torch.where(done | is_vert, j, (j - 1).clamp(min=0))
+    # fold sink-row end scores: the earliest rank of the best score above
+    # -inf wins (row 0, the start, when none)
+    if wb:
+        sink_row = sink_row & end_ok
+    scores = torch.where(sink_row, end_score[:, :rmax], neg)
+    top = torch.cat([neg_b1, scores], dim=1).amax(dim=1, keepdim=True)
+    first = torch.where(scores == top, rows[None, 1:],
+                        rmax + 1).amin(dim=1) if rmax else 0
+    best_row = torch.where(top[:, 0] > neg, first, 0)
+
+    # the traceback from each lane's best sink: code < p a diagonal move
+    # from pred slot code, < 2p a vertical one from slot code - p, else
+    # horizontal; row 0 moves left only
+    codes = dir_rows.cpu().numpy()
+    preds_h = preds.cpu().numpy()
+    sq_h = sq_all.cpu().numpy() if wb else None
+    nt = np.full((b, v + l), PATH_DONE, dtype=np.int32)
+    st = np.full((b, v + l), PATH_DONE, dtype=np.int32)
+    for i, (r, j) in enumerate(zip(best_row.tolist(), slen_l.tolist())):
+        for t in range(v + l):
+            if r == 0 and j == 0:
+                break
+            code = 2 * p
+            if r > 0:
+                c = min(max(j - int(sq_h[i, r]) * q, 0), wb - 1) if wb \
+                    else j
+                code = int(codes[min(r, len(codes)) - 1, i, c])
+            if code < 2 * p:
+                nt[i, t] = r - 1
+                st[i, t] = j - 1 if code < p else PATH_NONE
+                r = int(preds_h[i, r - 1, code % p])
+            else:
+                nt[i, t] = PATH_NONE
+                st[i, t] = j - 1
+            if code >= p * 2 or code < p:
+                j = max(j - 1, 0)
+    node_tape.copy_(torch.from_numpy(nt))
+    seq_tape.copy_(torch.from_numpy(st))
     return node_tape, seq_tape

@@ -196,6 +196,26 @@ def test_round_reference_matches_jax_kernel_wide(exported, case, l, wb,
         np.testing.assert_array_equal(got[1], want[1])
 
 
+@pytest.mark.parametrize("empty", ["one_lane", "every_lane"])
+@pytest.mark.parametrize("case,wb", [("l128", 0), ("l1024", 256)])
+def test_round_reference_matches_jax_kernel_empty_lanes(exported, case, wb,
+                                                        empty):
+    """Lanes of no ranks (no sink to end on: the walk starts at row 0
+    and moves left along the layer), beside real lanes or alone, where
+    the round has no rank at all."""
+    arrs, v_b, l_b, _ = exported[case][0]
+    arrs = [a.copy() for a in arrs]
+    gone = slice(0, 1) if empty == "one_lane" else slice(None)
+    arrs[0][gone] = 0
+    arrs[1][gone] = -1
+    arrs[2][gone] = 0
+    arrs[3][gone] = 0
+    want = jax_round(arrs, v_b, l_b, 16, 128, wb)
+    got = port_round(arrs, v_b, l_b, 16, 128, wb)
+    np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_array_equal(got[1], want[1])
+
+
 def test_round_reference_matches_jax_kernel_band_lag_drop():
     """Constructed rounds: preds up to 64 ranks back at wb 32 (quantum
     8) lag 5 or more quanta, so the kernels read them as -inf; at wb 0
@@ -457,9 +477,10 @@ def test_kernel_matches_plain_on_card():
     """The CUDA kernel against its plain version on the card, on
     exported rounds at the engine's three shapes, on rounds widened to
     wider rows (bands of 1,024 to 16,384 columns, walked tile by tile;
-    a 1,024-base row unbanded), on the constructed lag-drop rounds, and
-    a 500-lane launch of a real round's lanes tiled (a -w 1000
-    megabatch's width) held lane for lane to its plain version (needs a
+    a 1,024-base row unbanded), on the constructed lag-drop rounds, a
+    500-lane launch of a real round's lanes tiled (a -w 1000
+    megabatch's width) held lane for lane to its plain version, and one
+    lane at 32,768 columns, a plan with no shared-memory ring (needs a
     GPU and nvcc; run with ``pytest -m cuda`` on the card)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
@@ -496,3 +517,15 @@ def test_kernel_matches_plain_on_card():
     ref = pl.poa_round_reference(*t, v=v, l=l, p=p, k=k, wb=wb, **SCORES)
     np.testing.assert_array_equal(got[0], ref[0].numpy()[idx])
     np.testing.assert_array_equal(got[1], ref[1].numpy()[idx])
+    # the widest plan: a row of 32,768 columns (l_b 131,072) does not fit
+    # twice in shared memory, so every pred row comes from the device
+    # ring; one lane, the plain version on the card
+    a, v, l, p, k, wb = next(r for r in rounds if r[2] == 65536)
+    one = [np.ascontiguousarray(x[:1]) for x in widen(a, 131072)]
+    assert pl.plan(v, 131072, p, 32768, "cuda")["shared_rows"] == 0
+    got = port_round(one, v, 131072, p, k, 32768, "cuda")
+    t = [torch.from_numpy(x).cuda() for x in one]
+    ref = pl.poa_round_reference(*t, v=v, l=131072, p=p, k=k, wb=32768,
+                                 **SCORES)
+    np.testing.assert_array_equal(got[0], ref[0].cpu().numpy())
+    np.testing.assert_array_equal(got[1], ref[1].cpu().numpy())
