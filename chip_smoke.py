@@ -146,6 +146,14 @@ Needs one CUDA card.  Phases, one JSON line each:
                 checked in scan_check (no new plain run); the ms
                 (median of 3) against the tiled cells' bound, and the
                 cycle split;
+   scan_full_card  the same for scan_check's full-kernel region row
+                tiled to 1,024 lanes in one launch (the bound from the
+                full kernel's Myers word steps);
+   scan_full_ab  the full kernel (bit-parallel columns) against the
+                banded kernel over a band that covers the matrix, in
+                turns (full, band, band, full), on scan_check's full row
+                and the batched aligner's 16-lane bucket: the ms of
+                each, both tapes equal the checked ones;
    polish_scan  the CLI (-c 1 --cudaaligner-batches 1) on the first Mb
                 with RACON_TPU_TORCH_SCAN_ALIGN=1 and the align stage
                 all on the card: distance to the cut's truth <= draft /
@@ -251,16 +259,7 @@ Needs one CUDA card.  Phases, one JSON line each:
                 ``metrics --fleet A,B --json``: the merged kernel launch
                 counters equal the two daemons' summed, every merged
                 histogram's p50/p90/p99 equal ``merge_snapshots``'s;
-                ``wrapper_split``, the port's wrapper
-                (racon_tpu_torch/tools/wrapper.py) in a subprocess under
-                the backends' staged environment, on the failover part's
-                two-contig job, ``--split`` at the larger contig's bytes
-                (two chunks of one contig), ``-c 1
-                --cudaaligner-batches 1 -t <threads>``: one one-shot CLI
-                process per chunk, its bytes equal the routed job's
-                first two records, each chunk's device poa and align
-                seconds from its stderr > 0, no read with overlaps on
-                two contigs, the wall; ``wrapper_served``, the wrapper
+                ``wrapper_served``, the wrapper
                 with ``--server <router>`` on the failover part's
                 two-contig job, ``--split`` at the larger contig's
                 bytes: the router scatters it (shards=auto, two winners
@@ -279,8 +278,9 @@ Needs one CUDA card.  Phases, one JSON line each:
                 to ``metrics --fleet <router>,A,B --json`` taken next;
                 ``explain``, ``explain --socket <backend> --job <the
                 routed job>`` (JSON and text) and ``explain
-                --metrics-json`` on a wrapper chunk's run report: each
-                waterfall's stage walls within 1% of its report's;
+                --metrics-json`` on that job's run report written to a
+                file: each waterfall's stage walls within 1% of its
+                report's;
                 ``fleet_card``, each backend's max_memory_reserved, the
                 card's compute processes as nvidia-smi lists them, and
                 the processes with a /dev/nvidia<N> node open, sampled
@@ -293,7 +293,8 @@ Needs one CUDA card.  Phases, one JSON line each:
                 on the card and numpy on every buffer the mapper seeds
                 at k 13 (the reads in batches of up to 2^26 bases, then
                 the draft) and on a 1 Mb cut at k 5 and 15, 0
-                mismatches, with the kernel's ms, bound, the conv1d
+                mismatches, with the kernel's ms (its buffers made
+                before the timing), bound, the conv1d
                 yardstick, the copies and numpy; then (``--only map``
                 alone) the CLI at the
                 defaults with no PAF, --rounds 2 with --metrics-json on
@@ -336,7 +337,8 @@ twice; the same bytes), ``--only fusion`` phases 1-3 and fusion,
 ``--only serve`` phases 1-3, the staged polish and serve, ``--only
 fleet`` phases 1-3 and fleet, ``--only lockstep`` phases 1-3,
 lockstep_check, polish_w1000 and polish_wlong, ``--only scan`` phases 1-3,
-scan_check, scan_card, polish_scan and polish_portable.  ``--keep DIR``
+scan_check, scan_card, scan_full_card, scan_full_ab, polish_scan and
+polish_portable.  ``--keep DIR``
 copies the traced runs' traces and reports to DIR (open a trace in
 Perfetto).  The
 calibration store is off (``RACON_TPU_TORCH_CACHE_DIR=""``) outside
@@ -548,14 +550,18 @@ def tiny_windows(rng: random.Random, wtype):
     return wins
 
 
-def cuda_ms(fn, reps: int) -> list:
+def cuda_ms(fn, reps: int, setup=None) -> list:
+    """CUDA-event ms of ``reps`` calls of ``fn``; with ``setup``, each
+    call is ``fn(setup())``, the setup (buffers) made before its first
+    event."""
     import torch
     times = []
     for _ in range(reps):
+        arg = setup() if setup is not None else None
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
         e0.record()
-        fn()
+        fn() if setup is None else fn(arg)
         e1.record()
         e1.synchronize()
         times.append(e0.elapsed_time(e1))
@@ -1127,6 +1133,24 @@ def ring_hit_rate(stats) -> float:
 #: of kernel_check's 32 real windows, how many its plain version also
 #: computes (~7 s a window on the card's host): spread evenly by depth,
 #: the deepest among them (see plain_subset)
+def poa_bufs(inputs, stock) -> dict:
+    """Buffers of one POA launch on these packed inputs at the stock
+    caps, made before a timed call (poa_full_buffers)."""
+    from racon_tpu_torch.cuda import poa_full as pf
+    return pf.poa_full_buffers(int(inputs[0].shape[0]), v=stock["v"],
+                               lp=stock["lp"], wb=stock["wb"],
+                               device=inputs[0].device)
+
+
+def poa_ms(inputs, stock, reps: int) -> float:
+    """The POA kernel's CUDA-event ms on these inputs, the median of
+    ``reps`` calls, each into fresh buffers made before its events."""
+    from racon_tpu_torch.cuda import poa_full as pf
+    return statistics.median(cuda_ms(
+        lambda bufs: pf.poa_full(*inputs, **stock, bufs=bufs), reps,
+        setup=lambda: poa_bufs(inputs, stock)))
+
+
 PLAIN_WINDOWS = 3
 
 
@@ -1161,16 +1185,16 @@ def poa_check(fitting, dev, stock) -> tuple:
     inputs = convert.to_device(pk.seqs, pk.wts, pk.meta, pk.nlay,
                                pk.bblen, dev)
     kst = stats_for(inputs)
-    kern = pf.poa_full(*inputs, **stock, stats=kst)
+    kern = pf.poa_full(*inputs, **stock, stats=kst,
+                       bufs=poa_bufs(inputs, stock))
     torch.cuda.synchronize()
-    ms = statistics.median(cuda_ms(lambda: pf.poa_full(*inputs, **stock),
-                                   5))
+    ms = poa_ms(inputs, stock, 5)
     sub = plain_subset(windows32)
     head = convert.pack_windows([windows32[i] for i in sub], 1024, 2048)
     hin = convert.to_device(head.seqs, head.wts, head.meta, head.nlay,
                             head.bblen, dev)
     hk, hp = stats_for(hin), stats_for(hin)
-    hkern = pf.poa_full(*hin, **stock, stats=hk)
+    hkern = pf.poa_full(*hin, **stock, stats=hk, bufs=poa_bufs(hin, stock))
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     plain = pf.poa_full_reference(*hin, **stock, stats=hp)
@@ -1215,7 +1239,7 @@ def poa_check(fitting, dev, stock) -> tuple:
         kw = dict(v=256, lp=256, wb=256, match=5, mismatch=-4, gap=-8,
                   wtype=wtype.value, trim=trim)
         tk, tpl = stats_for(targs), stats_for(targs)
-        kout = pf.poa_full(*targs, **kw, stats=tk)
+        kout = pf.poa_full(*targs, **kw, stats=tk, bufs=poa_bufs(targs, kw))
         bad, err = compare(kout, pf.poa_full_reference(*targs, **kw,
                                                        stats=tpl))
         sbad = int((tk != tpl).any(dim=1).sum())
@@ -1270,22 +1294,22 @@ def full_card(fitting, dev, stock, plain_second_pass: int = 0) -> dict:
         return convert.to_device(pk.seqs, pk.wts, pk.meta, pk.nlay,
                                  pk.bblen, dev)
 
-    oc, om = (t.cpu().numpy() for t in pf.poa_full(*packed(fitting),
-                                                   **stock))
+    orig = packed(fitting)
+    oc, om = (t.cpu().numpy() for t in pf.poa_full(
+        *orig, **stock, bufs=poa_bufs(orig, stock)))
     inputs = packed(tiled)
     st = torch.zeros((inputs[0].shape[0], 3), dtype=torch.int32,
                      device=dev)
-    kc, km = pf.poa_full(*inputs, **stock, stats=st)
+    kc, km = pf.poa_full(*inputs, **stock, stats=st,
+                         bufs=poa_bufs(inputs, stock))
     torch.cuda.synchronize()
-    ms = statistics.median(cuda_ms(lambda: pf.poa_full(*inputs, **stock),
-                                   3))
+    ms = poa_ms(inputs, stock, 3)
     keep = pf.first_pass_nodes
     pf.first_pass_nodes = lambda v: v
     try:
-        one = pf.poa_full(*inputs, **stock)
+        one = pf.poa_full(*inputs, **stock, bufs=poa_bufs(inputs, stock))
         torch.cuda.synchronize()
-        one_ms = statistics.median(cuda_ms(
-            lambda: pf.poa_full(*inputs, **stock), 3))
+        one_ms = poa_ms(inputs, stock, 3)
     finally:
         pf.first_pass_nodes = keep
     bad, _ = compare(one, (kc, km))
@@ -1304,7 +1328,8 @@ def full_card(fitting, dev, stock, plain_second_pass: int = 0) -> dict:
                                    stock["lp"], stock["v"])
         pin = convert.to_device(ppk.seqs, ppk.wts, ppk.meta, ppk.nlay,
                                 ppk.bblen, dev)
-        pbad, _ = compare(pf.poa_full(*pin, **stock),
+        pbad, _ = compare(pf.poa_full(*pin, **stock,
+                                      bufs=poa_bufs(pin, stock)),
                           pf.poa_full_reference(*pin, **stock))
         bad += pbad
     codes = [int(c) for c in om[:n, 2][om[:n, 0] < 0]]
@@ -2386,18 +2411,6 @@ def fasta_head(fa: bytes, n: int) -> bytes:
     return b"".join(b">" + rec for rec in fa.split(b">")[1:n + 1])
 
 
-def reads_on_two_contigs(paf: str) -> int:
-    """The reads with PAF records on more than one target: where a split
-    run's per-chunk overlap filter could keep another overlap than the
-    whole run's."""
-    targets = {}
-    with open(paf, "rb") as fh:
-        for line in fh:
-            f = line.split(b"\t", 6)
-            targets.setdefault(f[0], set()).add(f[5])
-    return sum(1 for t in targets.values() if len(t) > 1)
-
-
 def waterfall_sum(text: str) -> float:
     """The summed stage walls of an ``explain`` waterfall as rendered
     (``serve/explain.py:_fmt_s``); the "(other)" row has no bar."""
@@ -2487,7 +2500,7 @@ def card_holders(pids) -> set:
 def fleet_phase(cpu, work, data, truth, threads) -> None:
     """The fleet on the card (module docstring): two backends and a
     router, a routed and a scattered job, a failover, two ranks, the
-    fleet scrape, the wrapper split and served, the read side (inspect,
+    fleet scrape, the served wrapper, the read side (inspect,
     top, explain) and the card's processes."""
     import base64
     import hashlib
@@ -2713,37 +2726,13 @@ def fleet_phase(cpu, work, data, truth, threads) -> None:
                 for c in counters.values()):
             raise RuntimeError(f"fleet metrics: {counters}, {q_bad}")
 
-        # ---- g: the wrapper, one one-shot process per chunk, on the
-        # failover part's two contigs: two chunks of one contig (the
-        # chunk size of the larger one)
+        # ---- g: the wrapper's flags and chunk size for h (its run of one
+        # one-shot process per chunk is held on the CPU by
+        # tests/test_torch_tools.py)
         flags = ["-c", "1", "--cudaaligner-batches", "1", "-t",
                  str(threads)]
         lens = [len(q) for _, q in fasta_records(read_bytes(paths_fo[2]))]
         split = max(lens)
-        report = os.path.join(work, "wrapper_chunk.metrics.json")
-        out, wall_w = run_wrapper(
-            work, ["--split", str(split), *flags, *paths_fo],
-            {**staged, "RACON_TPU_TORCH_METRICS_JSON": report},
-            "wrapper_split")
-        chunks = re.findall(rb"target split into (\d+) chunk", out.stderr)
-        device = [{"poa_s": float(p), "align_s": float(a)}
-                  for p, a in re.findall(rb"device poa ([0-9.]+) s / align "
-                                         rb"([0-9.]+) s", out.stderr)]
-        two = reads_on_two_contigs(paths_fo[1])
-        emit("fleet", part="wrapper_split", rc=out.returncode,
-             contigs=FAILOVER_CONTIGS, identical=out.stdout == whole_fo,
-             split_bytes=split,
-             chunks=int(chunks[0]) if chunks else None, chunk_device=device,
-             reads_on_two_contigs=two, wall_s=round(wall_w, 3))
-        if out.returncode != 0 or out.stdout != whole_fo \
-                or chunks != [b"2"] \
-                or len(device) != 2 or two != 0 \
-                or any(d["poa_s"] <= 0 or d["align_s"] <= 0
-                       for d in device):
-            raise RuntimeError(f"fleet wrapper_split: rc {out.returncode}, "
-                               f"{chunks} chunks, device {device}, "
-                               f"{two} reads on two contigs: "
-                               f"{out.stderr[-2000:]}")
 
         # ---- h: the wrapper against the router on the failover part's
         # two contigs, two chunks of one contig (the chunk size of the
@@ -2779,7 +2768,6 @@ def fleet_phase(cpu, work, data, truth, threads) -> None:
              shard_keys=scat[-1]["keys"] if scat else None,
              shard_winners=won, contigs=FAILOVER_CONTIGS,
              identical=out.stdout == whole_fo, wall_s=round(wall_s, 3),
-             wrapper_split_wall_s=round(wall_w, 3),
              repeat={"identical": again.stdout == whole_fo,
                      "wall_s": round(wall_r, 3),
                      "jobs_run": delta(c2, c1, "serve_jobs_completed"),
@@ -2855,9 +2843,12 @@ def fleet_phase(cpu, work, data, truth, threads) -> None:
             raise RuntimeError(f"fleet top_fleet: {list(rows)}, counters "
                                f"equal {same}")
 
-        # ---- k: the routed job's waterfall from its backend, and a
-        # wrapper chunk's from its run report
+        # ---- k: the routed job's waterfall from its backend, and from
+        # its run report written to a file
         jid, bsock = routed["job_id"], routed["routed_backend"]
+        report = os.path.join(work, "routed.metrics.json")
+        with open(report, "w") as fh:
+            json.dump(routed["report"], fh)
         rcs, texts = zip(*(read_side(a) for a in (
             ["explain", "--socket", bsock, "--job", str(jid), "--json"],
             ["explain", "--socket", bsock, "--job", str(jid)],
@@ -3119,8 +3110,9 @@ def seed_check(reads: str, draft: str, dev) -> dict:
         host = torch.from_numpy(codes)
         h2d = statistics.median(cuda_ms(lambda: host.to(dev), 3))
         cd = host.to(dev)
+        bufs = sw.seed_words_buffers(n, k, dev)
         out, ref, ms, plain_ms = timed_pair(
-            lambda: sw.seed_words(cd, k),
+            lambda: sw.seed_words(cd, k, bufs),
             lambda: sw.seed_words_reference(cd, k), reps=5 if timed else 1)
         d2h = statistics.median(cuda_ms(
             lambda: (out[0].cpu(), out[1].cpu()), 3))
@@ -3162,7 +3154,7 @@ def seed_check(reads: str, draft: str, dev) -> dict:
             tot["numpy_ms"] += numpy_ms
             tot["bytes"] += n + 8 * nk
             tot["ops"] += OPS_PER_SEED_WORD * nk
-        del cd, out, ref
+        del cd, out, ref, bufs
         torch.cuda.empty_cache()
         return row
 
@@ -3854,16 +3846,34 @@ def lockstep_phase(cli, cpu, work, data, region, dev, inputs, truth,
 # the scan ladder (RACON_TPU_TORCH_SCAN_ALIGN / RACON_TPU_TORCH_PORTABLE)
 # ---------------------------------------------------------------------------
 
-# scan full (one unit-cost cell, as OPS_PER_BAND_CELL counts it):
-# substitution compare 1, the diagonal, up and left candidates 3
-# (adds), their mins 2, the 2-bit direction 4 (two compares, two
-# selects) and its packing 2 (shift, or); the boundary cells are the
-# matrix's first row and column, not a per-cell cost
+# scan full, cell by cell (one unit-cost cell, as OPS_PER_BAND_CELL
+# counts it): substitution compare 1, the diagonal, up and left
+# candidates 3 (adds), their mins 2, the 2-bit direction 4 (two
+# compares, two selects) and its packing 2 (shift, or); the boundary
+# cells are the matrix's first row and column, not a per-cell cost.
+# The cell-by-cell bound, kept beside the one below (``cell_bound_ms``)
 OPS_PER_SCAN_FULL_CELL = 12
+# scan full, bit-parallel (one Myers step of a 64-row word of the query
+# at one target column, as the full kernel computes it):
+# 17 64-bit operations (the Peq word's or with Mv, the carry-in,
+# and-add-xor-or of Xh, Ph and Mh, the two top bits of hout, the two
+# shifts with their carry-ins, Pv and Mv), each two int32 ones
+OPS_PER_SCAN_FULL_WORD = 34
 # scan banded (one slot of a diagonal): the full cell's 12 and the
 # function's own clip of every value to BIG 1
 OPS_PER_SCAN_BAND_CELL = 13
 SCAN_PORTABLE_BP = 250_000
+
+
+def scan_bound(in_bytes: int, out_bytes: int, ql, tl, hw: int) -> tuple:
+    """(bound ms, what binds) of a scan launch on lanes of lengths ql,
+    tl: the banded kernel's cells (OPS_PER_SCAN_BAND_CELL), the full
+    kernel's Myers word steps (OPS_PER_SCAN_FULL_WORD), against the
+    inputs' and the op tape's bytes."""
+    from racon_tpu_torch.cuda import aligner as al
+    ops = al.kernel_cells(ql, tl, hw) * OPS_PER_SCAN_BAND_CELL if hw \
+        else al.full_words(ql, tl) * OPS_PER_SCAN_FULL_WORD
+    return bound(in_bytes, out_bytes, ops)
 
 
 def scan_row(qs, ts, lq: int, lt: int, hw: int, dev, keep=None) -> dict:
@@ -3897,17 +3907,20 @@ def scan_row(qs, ts, lq: int, lt: int, hw: int, dev, keep=None) -> dict:
             lambda: al.align_full_plain(*kin))
     diff = (out.long() - ref.long()).abs().amax(1)
     cells = al.kernel_cells(ql, tl, hw)
-    ops = cells * (OPS_PER_SCAN_BAND_CELL if hw else OPS_PER_SCAN_FULL_CELL)
-    bms, by = bound(nbytes(*kin), nbytes(out), ops)
+    bms, by = scan_bound(nbytes(*kin), nbytes(out), ql, tl, hw)
     tape = ref.cpu().numpy()[:len(qs)]
     cost = ((tape != al.OP_STOP) & (tape != al.OP_EQ)).sum(1)
     if keep is not None:
         keep.update(qs=qs, ts=ts, tapes=tape, lq=lq, lt=lt, hw=hw)
+    extra = {} if hw else {
+        "words": al.full_words(ql, tl),
+        "cell_bound_ms": bound(nbytes(*kin), nbytes(out),
+                               cells * OPS_PER_SCAN_FULL_CELL)[0]}
     return {"hw": hw, "lq": lq, "lt": lt, "lanes": len(qs), "padded": bb,
             "longest": int(max(ql.max(), tl.max())),
             "mismatches": int((diff > 0).sum()),
             "max_abs_err": int(diff.max()), "kernel_ms": round(ms, 4),
-            "plain_ms": round(plain_ms, 1), "cells": cells,
+            "plain_ms": round(plain_ms, 1), "cells": cells, **extra,
             "bound_ms": bms, "bound_by": by,
             "dir_tape_bytes": bufs["dirs"].numel(),
             "cycles": cycle_split(bufs["meta"].sum(0).tolist(),
@@ -3936,15 +3949,15 @@ def scan_check(region, dev) -> dict:
     short = [k for k in order if max(map(len, pairs[k])) <= 4096]
     six = spread(short, 6)
     two = spread(short, 2)
-    rows, checked = [], {}
+    rows, checked, checked_full = [], {}, {}
     narrow, main_rung, wide = BAND_LADDER
     for hw, idx, bd in ((narrow, six, 8192), (main_rung, two, 16384),
                         (wide, six, 16384), (0, six, 8192)):
         qs = [pairs[k][0] for k in idx]
         ts = [pairs[k][1] for k in idx]
+        keep = {main_rung: checked, 0: checked_full}.get(hw)
         rows.append(dict(part="region", **scan_row(
-            qs, ts, bd, bd, hw, dev,
-            keep=checked if hw == main_rung else None)))
+            qs, ts, bd, bd, hw, dev, keep=keep)))
     eq, et = scan_pairs(random.Random(11), 600)
     for hw in (0, 7, 512):
         rows.append(dict(part="edge", **scan_row(eq, et, 1024, 1024, hw,
@@ -3956,15 +3969,16 @@ def scan_check(region, dev) -> dict:
             "band_max_abs_err": max(r["max_abs_err"] for r in band),
             "full_max_abs_err": max(r["max_abs_err"] for r in full),
             "past_band": sum(r["past_band"] for r in band),
-            "band": main, "full": full[0]}, checked
+            "band": main, "full": full[0]}, checked, checked_full
 
 
 def scan_card(checked: dict, dev, n_lanes: int) -> dict:
-    """Kernel only: scan_check's hw 2,048 region pairs tiled to
-    ``n_lanes`` lanes in one launch of the banded kernel.  Every lane's
-    tape must equal its pair's tape already checked against the plain
-    version; the ms is the median of 3 CUDA-event runs after the
-    checked one, the bound that of the tiled lanes' cells."""
+    """Kernel only: the pairs of a scan_check row (its hw 2,048 region
+    pairs; scan_full_card: its full-kernel row) tiled to ``n_lanes``
+    lanes in one launch.  Every lane's tape must equal its pair's tape
+    already checked against the plain version; the ms is the median of
+    3 CUDA-event runs after the checked one, the bound that of the tiled
+    lanes (``scan_bound``)."""
     import numpy as np
     import torch
     from racon_tpu_torch.cuda import aligner as al
@@ -3981,23 +3995,84 @@ def scan_card(checked: dict, dev, n_lanes: int) -> dict:
         ql, tl)]
     torch.cuda.empty_cache()
     bufs = al.scan_buffers(n_lanes, lq, lt, hw, dev)
-    out = al.align_banded(*kin, hw, bufs).cpu().numpy()
+
+    def run():
+        return al.align_banded(*kin, hw, bufs) if hw \
+            else al.align_full(*kin, bufs)
+
+    out = run().cpu().numpy()
     mism = int((out != tapes[idx]).any(1).sum())
-    ms = statistics.median(cuda_ms(
-        lambda: al.align_banded(*kin, hw, bufs), 3))
+    ms = statistics.median(cuda_ms(run, 3))
     cycles = bufs["meta"].sum(0).tolist()
     dir_bytes = bufs["dirs"].numel()
     del bufs
     torch.cuda.empty_cache()
     cells = al.kernel_cells(ql, tl, hw)
-    bms, by = bound(nbytes(*kin), n_lanes * (lq + lt),
-                    cells * OPS_PER_SCAN_BAND_CELL)
+    bms, by = scan_bound(nbytes(*kin), n_lanes * (lq + lt), ql, tl, hw)
     return {"hw": hw, "lq": lq, "lt": lt, "lanes": n_lanes,
             "originals": len(qs), "longest": int(max(ql.max(), tl.max())),
             "mismatches": mism, "kernel_ms": round(ms, 4),
             "cells": cells, "bound_ms": bms, "bound_by": by,
             "x_bound": round(ms / bms, 2), "dir_tape_bytes": dir_bytes,
             "cycles": cycle_split(cycles, ("sweep", "traceback"))}
+
+
+def forced_pairs(region) -> tuple:
+    """The batched aligner's short-pair bucket (scan_forced_full): 8
+    region pairs cut to 1,500 bases and 8 unrelated pairs of 1,500."""
+    pairs = region_pairs(region, 16, 16384)
+    qs = [q[:1500] for q, _ in pairs]
+    ts = [t[:1500] for _, t in pairs[:8]] + [t[:1500] for _, t in
+                                             pairs[8:][::-1]]
+    return qs, ts
+
+
+def scan_full_ab(checked_full: dict, region, dev) -> dict:
+    """The full kernel (bit-parallel columns) against the alternative
+    design, the banded kernel's own scheme (diagonals in registers, a
+    named barrier a pair, a cluster split) over a band that covers the
+    matrix (hw = max(lq, lt): the band then holds every cell, and its
+    tape is the full one), in turns (full, band, band, full; each the
+    median of 5 CUDA-event runs after a checked call), on scan_check's
+    full row and on the batched aligner's 16-lane bucket (its 16 pairs,
+    bucket 1,536).  Both tapes must equal the full row's checked tapes
+    (the bucket's: each other's)."""
+    import numpy as np
+    import torch
+    from racon_tpu_torch.cuda import aligner as al
+
+    out = {}
+    fq, ft = forced_pairs(region)
+    for name, qs, ts, lq, lt in (
+            ("full_row", checked_full["qs"], checked_full["ts"],
+             checked_full["lq"], checked_full["lt"]),
+            ("bucket16", fq, ft, 1536, 1536)):
+        bb = al._pow2_batch(len(qs))
+        pad = [b""] * (bb - len(qs))
+        ql = np.array([len(x) for x in qs + pad], np.int32)
+        tl = np.array([len(x) for x in ts + pad], np.int32)
+        kin = [torch.from_numpy(a).to(dev) for a in (
+            al.encode_batch(qs + pad, lq, al.QPAD),
+            al.encode_batch(ts + pad, lt, al.TPAD), ql, tl)]
+        hw = max(lq, lt)
+        fb = al.scan_buffers(bb, lq, lt, 0, dev)
+        bband = al.scan_buffers(bb, lq, lt, hw, dev)
+        designs = {"full": lambda: al.align_full(*kin, fb),
+                   "band": lambda: al.align_banded(*kin, hw, bband)}
+        tapes = {k: f().cpu().numpy()[:len(qs)] for k, f in designs.items()}
+        want = checked_full["tapes"] if name == "full_row" else tapes["full"]
+        mism = {k: int((t != want).any(1).sum()) for k, t in tapes.items()}
+        ms = {"full": [], "band": []}
+        for k in ("full", "band", "band", "full"):
+            ms[k].append(round(statistics.median(cuda_ms(designs[k], 5)), 4))
+        out[name] = {"lanes": len(qs), "padded": bb, "lq": lq, "lt": lt,
+                     "band_hw": hw, "mismatches": mism, "ms": ms,
+                     "bound_ms": scan_bound(nbytes(*kin), bb * (lq + lt),
+                                            ql, tl, 0)[0],
+                     "faster": min(ms, key=lambda k: min(ms[k]))}
+        del fb, bband
+        torch.cuda.empty_cache()
+    return out
 
 
 def scan_forced_full(region, dev, cpu) -> dict:
@@ -4008,10 +4083,7 @@ def scan_forced_full(region, dev, cpu) -> dict:
     distance must be the native edit distance."""
     from racon_tpu_torch.cuda import aligner as al
 
-    pairs = region_pairs(region, 16, 16384)
-    qs = [q[:1500] for q, _ in pairs]
-    ts = [t[:1500] for _, t in pairs[:8]] + [t[:1500] for _, t in
-                                             pairs[8:][::-1]]
+    qs, ts = forced_pairs(region)
     aligner = al.CudaBatchAligner(1536, 1536, len(qs), device=dev)
     for q, t in zip(qs, ts):
         if not aligner.add(q, t):
@@ -4021,8 +4093,10 @@ def scan_forced_full(region, dev, cpu) -> dict:
     bad = int(sum(int(d) != n for d, n in zip(aligner.distances, native)))
     return {"pairs": len(qs), "native_mismatches": bad,
             "stats": {k: {"launches": v["launches"],
-                          "kernel_ms": round(v["kernel_ms"], 3),
-                          "cells": v["cells"]}
+                          "kernel_ms": round(v["kernel_ms"], 4),
+                          "cells": v["cells"],
+                          **({"words": v["words"]} if "words" in v
+                             else {})}
                       for k, v in aligner.stats.items()}}
 
 
@@ -4064,7 +4138,7 @@ def scan_paths(cli, cpu, work, data, inputs, truth, region, dev,
             forced["launches"] = launch_counts(scan=True)
             forced["main_path_bound_ms"] = bound(
                 0, 0, forced["stats"].get("align_scan_full", {}).get(
-                    "cells", 0) * OPS_PER_SCAN_FULL_CELL)[0]
+                    "words", 0) * OPS_PER_SCAN_FULL_WORD)[0]
         d_pol = chunked_distance(read_fasta(out_path), cut_truth, cpu)
         kcells = {k: pol.align_kernel_cells[k]
                   for k in ("align_scan_band", "align_scan_full")}
@@ -4089,8 +4163,8 @@ def scan_paths(cli, cpu, work, data, inputs, truth, region, dev,
                         0, 0, kcells["align_scan_band"]
                         * OPS_PER_SCAN_BAND_CELL)[0],
                     "align_scan_full": bound(
-                        0, 0, kcells["align_scan_full"]
-                        * OPS_PER_SCAN_FULL_CELL)[0]},
+                        0, 0, pol.align_scan_full_words
+                        * OPS_PER_SCAN_FULL_WORD)[0]},
                 "align_eligible": pol.align_eligible,
                 "align_over_length": pol.align_over_length,
                 "align_cpu_fallthrough": pol.align_cpu_fallthrough,
@@ -4135,20 +4209,26 @@ def scan_phase(cli, cpu, work, data, region, dev, inputs, truth,
                threads) -> tuple:
     """scan_check, scan_card, then polish_scan and polish_portable;
     returns the lines of scan_check, polish_scan and polish_portable."""
-    scheck, checked = scan_check(region, dev)
+    scheck, checked, checked_full = scan_check(region, dev)
     emit("scan_check", **scheck)
     if scheck["mismatches"]:
         raise RuntimeError(f"a scan kernel disagrees with its plain version "
                            f"on {scheck['mismatches']} lane(s)")
     if scheck["past_band"] < 1:
         raise RuntimeError("scan_check ran no lane past its band")
-    for n_lanes in (64, 1024):
-        card = scan_card(checked, dev, n_lanes)
-        emit("scan_card", **card)
+    for name, kept, n_lanes in (("scan_card", checked, 64),
+                                ("scan_card", checked, 1024),
+                                ("scan_full_card", checked_full, 1024)):
+        card = scan_card(kept, dev, n_lanes)
+        emit(name, **card)
         if card["mismatches"]:
-            raise RuntimeError(f"scan_card: {card['mismatches']} of "
+            raise RuntimeError(f"{name}: {card['mismatches']} of "
                                f"{n_lanes} tiled lanes differ from their "
                                "checked tapes")
+    ab = scan_full_ab(checked_full, region, dev)
+    emit("scan_full_ab", **ab)
+    if any(sum(r["mismatches"].values()) for r in ab.values()):
+        raise RuntimeError(f"scan_full_ab: tapes differ: {ab}")
     return (scheck, *scan_paths(cli, cpu, work, data, inputs, truth, region,
                                 dev, threads))
 
@@ -4170,13 +4250,13 @@ def main(argv=None) -> int:
                     "cache / fusion: env, build, dataset and that phase "
                     "only; serve: env, build, dataset, the staged polish "
                     "and serve; fleet: env, build, dataset and fleet (the "
-                    "router, shards, failover, ranks, scrape, the wrapper "
-                    "split and served, inspect --fleet, top --fleet and "
+                    "router, shards, failover, ranks, scrape, the served "
+                    "wrapper, inspect --fleet, top --fleet and "
                     "explain); lockstep: env, build, dataset, "
                     "lockstep_check, polish_w1000 and polish_wlong; scan: "
                     "env, build, "
-                    "dataset, scan_check, scan_card, polish_scan and "
-                    "polish_portable; "
+                    "dataset, scan_check, scan_card, scan_full_card, "
+                    "scan_full_ab, polish_scan and polish_portable; "
                     "then exit 0 without the result line")
     ap.add_argument("--keep", default=None,
                     help="directory to copy the traced runs' traces and "

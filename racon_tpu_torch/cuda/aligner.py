@@ -11,7 +11,9 @@ Decoded alignments are op tapes in traceback (reversed) order over the
 
 The two kernels (``csrc/align_scan.cu``) compute what
 ``racon_tpu/tpu/aligner.py:_align_kernel`` and ``_banded_align_kernel``
-(XLA ``jax.jit`` kernels) compute: unit-cost global alignment swept over
+(XLA ``jax.jit`` kernels) compute (the full kernel bit-parallel, column
+by column, its traceback recomputing the same directions from the
+scores): unit-cost global alignment swept over
 the anti-diagonals d = 1, 2, ... of the DP, cell (i, j) = (d - j, j),
 with a 2-bit direction per cell (diagonal 0 when the cell equals its
 diagonal candidate, else up 1 when it equals its vertical one, else left
@@ -176,9 +178,10 @@ def scan_buffers(b: int, lq: int, lt: int, hw: int, device) -> dict:
     ``ops`` [b, lq + lt] uint8 zeroed (the tapes), ``meta`` [b, 2]
     int64 zeroed (each lane's sweep and traceback clock64() cycles; the
     plain version leaves 0), the launch they were made for (``key``),
-    and on the card the direction tape, the full kernel's rolling rows
-    past shared memory and the bound library with its kernels loaded.
-    Raises when hw is past the banded kernel."""
+    and on the card the kernel's tape (``dirs``: the full kernel's
+    column words, the banded kernel's direction words) and the bound
+    library with its kernels loaded.  Raises when hw is past the banded
+    kernel."""
     device = torch.device(device)
     bufs = {"ops": torch.zeros((b, lq + lt), dtype=torch.uint8,
                                device=device),
@@ -191,12 +194,9 @@ def scan_buffers(b: int, lq: int, lt: int, hw: int, device) -> dict:
     bufs["lib"] = lib = build.prepare("align_scan", device)
     with torch.cuda.device(device):
         dir_bytes = int(lib.align_scan_dir_bytes(b, lq, lt, hw))
-        roll_bytes = int(lib.align_scan_roll_bytes(lq, lt, hw))
     if dir_bytes < 0:
         raise ValueError(f"hw={hw} is past the banded kernel")
     bufs["dirs"] = torch.empty(dir_bytes, dtype=torch.uint8, device=device)
-    bufs["roll"] = torch.empty(max(1, b * roll_bytes // 4),
-                               dtype=torch.int32, device=device)
     return bufs
 
 
@@ -222,8 +222,8 @@ def _launch(q, t, ql, tl, hw: int, name: str, bufs: dict):
     with torch.cuda.device(dev):
         err = bufs["lib"].align_scan_launch(
             q.data_ptr(), t.data_ptr(), ql.data_ptr(), tl.data_ptr(),
-            dirs.data_ptr(), ops.data_ptr(), meta.data_ptr(),
-            bufs["roll"].data_ptr(), b, lq, lt, hw, stream)
+            dirs.data_ptr(), ops.data_ptr(), meta.data_ptr(), b, lq, lt,
+            hw, stream)
     if err != 0:
         msg = bufs["lib"].align_scan_error_string(err).decode()
         raise RuntimeError(f"{name} kernel launch failed: {msg} ({err})")
@@ -456,6 +456,14 @@ def kernel_cells(ql, tl, hw: int) -> int:
     return int(((ql + 1) * (tl + 1) * ((ql + tl) > 0)).sum())
 
 
+def full_words(ql, tl) -> int:
+    """The full kernel's sweep for lanes of lengths ql, tl: one Myers
+    step per 64-row word of the query per target column, summed."""
+    ql = np.asarray(ql, np.int64).clip(min=0)
+    tl = np.asarray(tl, np.int64).clip(min=0)
+    return int(((ql + 63) // 64 * tl).sum())
+
+
 def band_align_batch(queries: Sequence[bytes], targets: Sequence[bytes],
                      blq: int, blt: int, allow_full: bool = True,
                      mem_budget: int = 2 << 30, need_ratio: float = 0.2,
@@ -477,7 +485,8 @@ def band_align_batch(queries: Sequence[bytes], targets: Sequence[bytes],
     (the CPU); each launch's interval goes to ``util`` (default
     ``obs.DEVICE_UTIL``) and the trace's device lane.  ``stats``, when
     given, accumulates per kernel its ``launches``, ``kernel_ms``,
-    ``device_s``, ``cells`` (``kernel_cells``), ``cycles`` (the
+    ``device_s``, ``cells`` (``kernel_cells``; the full kernel's
+    ``words`` too, ``full_words``), ``cycles`` (the
     lanes' summed sweep and traceback cycles, 0 on the CPU) and
     ``rungs`` (per half-width: launches, lanes, kernel_ms).  Each
     launch's inputs and buffers (``scan_buffers``) are made before its
@@ -534,6 +543,8 @@ def band_align_batch(queries: Sequence[bytes], targets: Sequence[bytes],
             st["kernel_ms"] += timer.kernel_ms()
             st["device_s"] += timer.device_s()
             st["cells"] += kernel_cells(ql, tl, hw)
+            if not hw:
+                st["words"] = st.get("words", 0) + full_words(ql, tl)
             st["cycles"] = [a + int(c) for a, c in zip(st["cycles"], cycles)]
             rung = st.setdefault("rungs", {}).setdefault(
                 hw, {"launches": 0, "lanes": 0, "kernel_ms": 0.0})

@@ -47,11 +47,12 @@ SIGNATURES = {
     "align_band": [_VP] * 9 + [_I] * 7 + [_VP],
     "seed_words": [_VP] * 3 + [ctypes.c_longlong, _I, _VP],
     "poa_lockstep": [_VP] * 11 + [_I] * 9 + [_VP],
-    "align_scan": [_VP] * 8 + [_I] * 4 + [_VP],
+    "align_scan": [_VP] * 7 + [_I] * 4 + [_VP],
 }
 
 #: other C functions of a library: name -> (argument types, result)
-EXTRA = {"poa_full": {"poa_full_slots": ([_I] * 3, _I)},
+EXTRA = {"poa_full": {"poa_full_slots": ([_I] * 3, _I),
+                      "poa_full_prepare": ([], _I)},
          "align_wfa": {"align_wfa_slots": ([_I] * 3, _I),
                        "align_wfa_smem": ([_I] * 2, _I),
                        "align_wfa_warps": ([_I], _I),
@@ -60,11 +61,10 @@ EXTRA = {"poa_full": {"poa_full_slots": ([_I] * 3, _I)},
                         "align_band_smem": ([_I] * 2, _I),
                         "align_band_warps": ([_I] * 2, _I),
                         "align_band_prepare": ([], _I)},
+         "seed_words": {"seed_words_prepare": ([], _I)},
          "poa_lockstep": {"poa_lockstep_prepare": ([], _I),
                           "poa_lockstep_plan": ([_I] * 4 + [_VP], None)},
-         "align_scan": {"align_scan_roll_bytes": ([_I] * 3,
-                                                  ctypes.c_longlong),
-                        "align_scan_dir_bytes": ([_I] * 4,
+         "align_scan": {"align_scan_dir_bytes": ([_I] * 4,
                                                  ctypes.c_longlong),
                         "align_scan_prepare": ([], _I)}}
 

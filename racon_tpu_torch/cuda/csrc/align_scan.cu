@@ -15,9 +15,11 @@
 // (5), target codes past lt TPAD (6); neither matches anything, while N
 // (4) matches N.
 //
-// Full kernel: columns 0..lt of each diagonal.  Only cells with i <= ql
-// and j <= tl are computed: the traceback reads no other cell, and none
-// of those reads another.
+// Full kernel: only cells with i <= ql and j <= tl matter (the
+// traceback reads no other cell, and none of those reads another), and
+// they hold the edit distance D[i][j] of the prefixes, which the kernel
+// computes column by column (below) and the traceback turns into the
+// same directions.
 //
 // Banded kernel (half-width hw): the wb = hw + 2 slots of diagonal d
 // start at column jlo(d) = max(0, floor((d - hw + 1) / 2)).  Slot s
@@ -31,10 +33,48 @@
 // reaches is computed exactly as the JAX kernel computes it, and a lane
 // past its band gives the JAX kernel's tape too.
 //
-// What bounds them: 12 (full) and 13 (banded) int32 operations a cell
-// at 16.7 T/s; the direction tape's bytes are a few percent of that.
-// What holds them back is latency: one pair's diagonals are a chain,
-// and a main-path launch holds fewer pairs than the card has SMs.
+// What bounds them: the banded kernel's 13 int32 operations a cell at
+// 16.7 T/s; the full kernel's ~34 operations a 64-row word of a column
+// (bit-parallel: see below).  What holds them back is latency: one
+// pair's diagonals (or columns) are a chain, and a main-path launch
+// holds fewer pairs than the card has SMs.
+//
+// Full kernel design (bit-parallel columns, Myers / Hyyro; racon-gpu's
+// cudaaligner and edlib answer the chain the same way):
+//
+// * One warp a pair, G pairs a block (G = ceil(b / SMs), at most 4), so
+//   a launch of 16 pairs spreads over 16 SMs.  Lane l holds the 64 query
+//   rows of word s0 + l (a stripe of 32 words, 2,048 rows; a longer
+//   query runs stripe after stripe, each handing the next its last
+//   word's horizontal deltas through the tape) and its column's
+//   vertical deltas Pv / Mv; the stripe's Peq words (one a code 0..6;
+//   codes of 7 and up match nothing, the encoding gives 0..6) sit in
+//   shared memory.
+// * Each target column is one Myers step a word; lane l runs column j
+//   at step j + l - 1, one step behind lane l - 1, whose horizontal
+//   delta out of its last row arrives by one shuffle a step.  Target
+//   codes come through a ring in shared memory filled 32 steps ahead and
+//   the next column's Peq word is read a step ahead, so the chain a step
+//   carries is the shuffle and the word's add-and-carry.
+// * The directions come out of the step bit-parallel: up where the new
+//   vertical delta is +1; diagonal where hd(i, j) + vd(i, j - 1) (the
+//   step's horizontal deltas and the last column's vertical ones), which
+//   is D[i][j] - D[i-1][j-1] (0 or 1), equals the substitution cost:
+//   always on a Peq match, on a mismatch where it is 1.  That is the JAX
+//   tie rule (diagonal, then up, then left), so no score is stored: two
+//   64-bit planes a word-column (not diagonal; then left, or on the
+//   diagonal a mismatch), 16 bytes, diagonal-major (row j - 1 + l of
+//   the tape holds lane l's word of column j), so a step's 32 stores
+//   are one contiguous run.
+// * Traceback: the warp walks from (ql, tl) over windows of 32 columns
+//   x 8 words of the tape staged in shared memory with cp.async, the
+//   next window to the left in flight while it walks.  The move at the
+//   walk's cell repeats along its own direction while the cells agree:
+//   lane m reads the m-th cell of that run (diagonal, up or left), a
+//   ballot gives the run's length and its lanes store their ops side by
+//   side, so one round covers a run (a diagonal run of matches and
+//   mismatches, an insertion or a deletion).  Each pair's sweep and
+//   traceback clock64() cycles go to meta.
 //
 // Banded kernel design:
 //
@@ -93,9 +133,6 @@
 //   where it stands.  Each pair's sweep and traceback clock64() cycles
 //   go to meta.
 //
-// The full kernel keeps one block a pair: the three rolling diagonals
-// of lt + 1 columns in shared memory (device scratch past it), one
-// barrier a diagonal, thread 0's traceback over 32-row windows.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -103,10 +140,16 @@ namespace {
 
 constexpr int kBig = 1 << 20;
 constexpr uint8_t kQPad = 5, kTPad = 6;
-constexpr int kDirDiag = 0, kDirUp = 1, kDirLeft = 2;
 constexpr uint8_t kOpEq = 1, kOpX = 2, kOpI = 3, kOpD = 4;
-constexpr int kMaxThreads = 1024;
-constexpr int kWindowRows = 32;
+
+// full kernel: pairs (warps) a block at most, the rings' entries, the
+// codes with a Peq word (0..6), and the traceback window's columns and
+// 64-row words
+constexpr int kFullWarps = 4;
+constexpr int kRing = 128;
+constexpr int kCodes = 7;
+constexpr int kTbCols = 32;
+constexpr int kTbBlocks = 8;
 
 // banded kernel: slots a thread, warps a block's pair at most, blocks
 // a split pair at most (a portable cluster: hw <= 8 x 16 x 32 x 9 - 2)
@@ -130,131 +173,323 @@ __device__ __forceinline__ int jlo_of(int d, int hw) {
 // the full kernel (hw = 0)
 // ---------------------------------------------------------------------------
 
-// one byte of four lanes' 2-bit codes, written by the group's first
-// lane (every lane of the warp calls this)
-__device__ __forceinline__ void pack_store(uint8_t* row, int cell, int code,
-                                           int pw) {
-    unsigned x = (unsigned)code << (2 * (threadIdx.x & 3));
-    x |= __shfl_xor_sync(0xffffffffu, x, 1);
-    x |= __shfl_xor_sync(0xffffffffu, x, 2);
-    if ((threadIdx.x & 3) == 0 && (cell >> 2) < pw)
-        row[cell >> 2] = (uint8_t)x;
+// a warp's shared memory: the target-code and carry-in rings, the
+// stripe's Peq words (code x lane; code 7 matches nothing) and the
+// traceback's two windows
+struct FullShared {
+    uint8_t tcode[kRing];
+    signed char hin[kRing];
+    uint64_t peq[kCodes + 1][32];
+    uint4 win[2][kTbCols * kTbBlocks];
+};
+
+// the tape record of column c (0-based: target position c), word b:
+// diagonal-major, so a step's 32 lanes store one contiguous run
+__device__ __forceinline__ long long rec_of(int c, int b, int nbp) {
+    return (long long)(c + (b & 31)) * nbp + b;
 }
 
-__global__ void __launch_bounds__(kMaxThreads, 1)
+// A lane's ring entry of target position p: its code (7 for codes past
+// 6 and positions past TL) and, for a stripe past the first, the
+// horizontal delta out of the previous stripe's last word at that
+// column; loaded a chunk of 32 positions before it enters the rings.
+struct RingLoad {
+    int code, hin;
+};
+
+__device__ __forceinline__ RingLoad load_ring(const uint8_t* ts,
+                                              const signed char* ho, int p,
+                                              int TL, int s0) {
+    RingLoad r{kCodes, 0};
+    if (p < TL) {
+        r.code = min((int)__ldg(ts + p), kCodes);
+        if (s0 > 0) r.hin = ho[p];
+    }
+    return r;
+}
+
+__device__ __forceinline__ void store_ring(FullShared* sh, int p,
+                                           RingLoad r) {
+    sh->tcode[p & (kRing - 1)] = (uint8_t)r.code;
+    sh->hin[p & (kRing - 1)] = (signed char)r.hin;
+}
+
+// a predicated 16-byte store of two planes (no divergent block around
+// it: the sweep's lanes stay converged from step to step)
+__device__ __forceinline__ void store_if(uint4* p, uint64_t p0, uint64_t p1,
+                                         bool on) {
+    asm volatile("{\n\t.reg .pred q;\n\t"
+                 "setp.ne.u32 q, %5, 0;\n\t"
+                 "@q st.global.v4.u32 [%0], {%1, %2, %3, %4};\n\t}"
+                 ::"l"(p), "r"((unsigned)p0), "r"((unsigned)(p0 >> 32)),
+                   "r"((unsigned)p1), "r"((unsigned)(p1 >> 32)),
+                   "r"((unsigned)on) : "memory");
+}
+
+// One stripe of the sweep: words s0 .. s0 + 31 over columns 1 .. TL.
+// Lane l's word b holds rows 64 b + 1 .. 64 b + 64; at column j it
+// takes the horizontal delta hin at its first row (lane l - 1's hout,
+// by shuffle; +1 on row 0), and stores two bit-planes of the column's
+// directions: not diagonal, then (diagonal) mismatch or (not) left.
+__device__ __forceinline__ void full_stripe(FullShared* sh, const uint8_t* qs,
+                                            const uint8_t* ts, uint4* tape,
+                                            signed char* ho, int QL, int TL,
+                                            int nb, int nbp, int s0,
+                                            int lane) {
+    const int bk = s0 + lane;
+    const bool live = bk < nb;
+    uint64_t peq[kCodes];
+#pragma unroll
+    for (int c = 0; c < kCodes; ++c) peq[c] = 0;
+    if (live) {
+        for (int r = 0; r < 64; ++r) {
+            const int i = 64 * bk + r;
+            const int c = i < QL ? (int)__ldg(qs + i) : kCodes;
+#pragma unroll
+            for (int k = 0; k < kCodes; ++k)
+                peq[k] |= (uint64_t)(c == k) << r;
+        }
+    }
+#pragma unroll
+    for (int c = 0; c < kCodes; ++c) sh->peq[c][lane] = peq[c];
+    sh->peq[kCodes][lane] = 0;
+    uint64_t pv = ~0ull, mv = 0;          // column 0: D[i][0] = i
+    unsigned state = 1;                   // hout + 1
+    uint4* out = tape + s0 + lane;        // record (k - lane, bk) at step k
+    // the rings: every slot a valid code first, then positions [0, 32)
+    // now and [32, 64) in flight
+#pragma unroll
+    for (int m = 0; m < kRing / 32; ++m) sh->tcode[lane + 32 * m] = kCodes;
+    __syncwarp();
+    store_ring(sh, lane, load_ring(ts, ho, lane, TL, s0));
+    RingLoad ahead = load_ring(ts, ho, 32 + lane, TL, s0);
+    // steps in whole chunks of 32 (those past the last column do nothing)
+    const int steps = TL + min(32, nb - s0) - 1;
+    // the Peq word of this step's column and the target code of the one
+    // after next: each step's shared loads serve later steps, none its own
+    __syncwarp();
+    uint64_t eq = sh->peq[sh->tcode[(-lane) & (kRing - 1)]][lane];
+    int code = sh->tcode[(1 - lane) & (kRing - 1)];
+    int hin0 = s0 ? (int)sh->hin[0] : 1;  // lane 0's carry-in, a step ahead
+    for (int k0 = 0; k0 < steps; k0 += 32) {
+        // the rings hold positions [k0 - 31, k0 + 63] from here on; the
+        // chunk after those is loaded now, stored 32 steps on
+        __syncwarp();
+        store_ring(sh, k0 + 32 + lane, ahead);
+        ahead = load_ring(ts, ho, k0 + 64 + lane, TL, s0);
+        __syncwarp();
+#pragma unroll 8
+        for (int kk = 0; kk < 32; ++kk, out += nbp) {
+            const int k = k0 + kk;
+            const uint64_t eq_next = sh->peq[code][lane];
+            code = sh->tcode[(k + 2 - lane) & (kRing - 1)];
+            const int hin_next = s0 ? (int)sh->hin[(k + 1) & (kRing - 1)]
+                                    : 1;
+            const unsigned in = __shfl_up_sync(0xffffffffu, state, 1);
+            const int j = k - lane + 1;   // this lane's column
+            const int hin = lane ? (int)in - 1 : hin0;
+            // edlib's block step, the Peq word eq kept for the planes;
+            // computed on every lane, kept where the lane has a column
+            // (no divergent block: the stores are predicated)
+            const bool act = live && (unsigned)(j - 1) < (unsigned)TL;
+            const uint64_t xv = eq | mv;
+            const uint64_t neg = hin < 0 ? 1ull : 0ull;
+            const uint64_t e = eq | neg;
+            const uint64_t xh = (((e & pv) + pv) ^ pv) | e;
+            const uint64_t ph = mv | ~(xh | pv);
+            const uint64_t mh = pv & xh;
+            const int hout = (int)(ph >> 63) - (int)(mh >> 63);
+            // diagonal iff D[i][j] - D[i-1][j-1] = hd(i, j) + vd(i, j-1)
+            // (0 or 1) equals the substitution cost: always on a match,
+            // on a mismatch where hd + vd = 1 (+1 and 0, or 0 and +1)
+            const uint64_t diag = eq | ((ph | pv) & ~(mh | mv));
+            const uint64_t ph2 = (ph << 1) | (hin > 0 ? 1ull : 0ull);
+            const uint64_t mh2 = (mh << 1) | neg;
+            const uint64_t npv = mh2 | ~(xv | ph2);  // up iff vd(i, j) = +1
+            const uint64_t p0 = ~diag;
+            const uint64_t p1 = (diag & ~eq) | (p0 & ~npv);
+            store_if(out, p0, p1, act);
+            // the next stripe's first word takes its carry-in here
+            if (act && lane == 31 && bk + 1 < nb)
+                ho[j - 1] = (signed char)hout;
+            pv = act ? npv : pv;
+            mv = act ? (ph2 & xv) : mv;
+            state = act ? (unsigned)(hout + 1) : state;
+            eq = eq_next;
+            hin0 = hin_next;
+        }
+    }
+    // the last lane's carries reach the next stripe's first lane
+    __syncwarp();
+}
+
+// Stage the tape window of columns [c0, c0 + kTbCols) x words [b0, b0 +
+// kTbBlocks) (columns < lt) into window ``w``: one 16-byte cp.async a
+// record, the warp's lanes over the window, committed as one group.
+__device__ __forceinline__ void stage_full(FullShared* sh, int w,
+                                           const uint4* tape, int c0, int b0,
+                                           int lt, int nbp, int lane) {
+#pragma unroll
+    for (int m = 0; m < kTbCols * kTbBlocks / 32; ++m) {
+        const int e = lane + 32 * m;
+        const int cc = e / kTbBlocks, bw = e % kTbBlocks;
+        if (c0 + cc < lt) {
+            const unsigned dst = (unsigned)__cvta_generic_to_shared(
+                &sh->win[w][e]);
+            asm volatile("cp.async.cg.shared.global [%0], [%1], 16;"
+                         ::"r"(dst), "l"(tape + rec_of(c0 + cc, b0 + bw, nbp))
+                         : "memory");
+        }
+    }
+    asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+// the window placed for a walk at (i, j): column j - 1 and word
+// (i - 1) / 64 at its right and lower edges
+__device__ __forceinline__ void place_full(int i, int j, int nbp, int& c0,
+                                           int& b0) {
+    c0 = max(0, j - kTbCols);
+    b0 = max(0, min(nbp - kTbBlocks,
+                    ((max(i, 1) - 1) >> 6) - (kTbBlocks - 1)));
+}
+
+// whether window (c0, b0) holds the record the step at (i, j) reads:
+// column j - 1 at row i's word
+__device__ __forceinline__ bool holds_full(int i, int j, int c0, int b0) {
+    return i == 0 || j == 0
+           || ((unsigned)(j - 1 - c0) < (unsigned)kTbCols
+               && (unsigned)(((i - 1) >> 6) - b0) < (unsigned)kTbBlocks);
+}
+
+// The direction bits of cell (i, j) from the window at shared address
+// ``win`` (bit 0: not diagonal; bit 1: then left, or on the diagonal a
+// mismatch), or -1 when the window does not hold it (or i, j < 1).
+__device__ __forceinline__ int cell_bits(unsigned win, int i, int j, int c0,
+                                         int b0) {
+    const int c = j - 1 - c0, w = ((i - 1) >> 6) - b0;
+    if (i < 1 || j < 1 || (unsigned)c >= (unsigned)kTbCols
+        || (unsigned)w >= (unsigned)kTbBlocks)
+        return -1;
+    const int r = (i - 1) & 63;
+    const unsigned addr = win + 16u * (c * kTbBlocks + w) + 4u * (r >> 5);
+    unsigned p0, p1;
+    asm volatile("ld.shared.u32 %0, [%1];" : "=r"(p0) : "r"(addr));
+    asm volatile("ld.shared.u32 %0, [%1];" : "=r"(p1) : "r"(addr + 8u));
+    return (int)((p0 >> (r & 31)) & 1u) | (int)((p1 >> (r & 31)) & 1u) << 1;
+}
+
+// the run of lanes 0 .. n - 1 whose ballot bit is set, from lane 0
+__device__ __forceinline__ int run_of(unsigned mask) {
+    return mask == 0xffffffffu ? 32 : __ffs(~mask) - 1;
+}
+
+// The warp's walk over the window at shared address ``win`` (columns
+// [c0, c0 + kTbCols), words [b0, b0 + kTbBlocks)) from (i, j), until the
+// window no longer holds (i, j) or the walk reaches row or column 0.
+// The move at (i, j) repeats along its own direction while the cells
+// agree: lane m reads the m-th cell of that run (diagonal, up or left),
+// a ballot gives the run's length, and the lanes of the run store their
+// ops side by side.  A run stops at the window's edge.
+__device__ __forceinline__ void walk_full(unsigned win, int& i, int& j,
+                                          int& pos, uint8_t* out, int c0,
+                                          int b0, int lane) {
+    while (i > 0 && j > 0) {
+        const int bd = cell_bits(win, i - lane, j - lane, c0, b0);
+        const int first = __shfl_sync(0xffffffffu, bd, 0);
+        if (first < 0) return;            // (i, j) is in the next window
+        int run, di, dj;
+        if ((first & 1) == 0) {           // diagonal: = or X
+            run = run_of(__ballot_sync(0xffffffffu, bd >= 0 && !(bd & 1)));
+            if (lane < run) out[pos + lane] = bd & 2 ? kOpX : kOpEq;
+            di = dj = run;
+        } else if (first == 1) {          // up: I
+            const int bu = cell_bits(win, i - lane, j, c0, b0);
+            run = run_of(__ballot_sync(0xffffffffu, bu == 1));
+            if (lane < run) out[pos + lane] = kOpI;
+            di = run;
+            dj = 0;
+        } else {                          // left: D
+            const int bl = cell_bits(win, i, j - lane, c0, b0);
+            run = run_of(__ballot_sync(0xffffffffu, bl == 3));
+            if (lane < run) out[pos + lane] = kOpD;
+            di = 0;
+            dj = run;
+        }
+        i -= di;
+        j -= dj;
+        pos += run;
+    }
+    // row 0: left; column 0: up
+    for (int m = lane; m < j; m += 32) out[pos + m] = kOpD;
+    pos += j;
+    j = 0;
+    for (int m = lane; m < i; m += 32) out[pos + m] = kOpI;
+    pos += i;
+    i = 0;
+}
+
+__device__ __forceinline__ void wait_full() {
+    asm volatile("cp.async.wait_all;" ::: "memory");
+    __syncwarp();
+}
+
+__global__ void __launch_bounds__(32 * kFullWarps)
 align_full_kernel(const uint8_t* __restrict__ q,
                   const uint8_t* __restrict__ t, const int* __restrict__ ql,
-                  const int* __restrict__ tl, uint8_t* __restrict__ dirs,
-                  uint8_t* __restrict__ ops, long long* __restrict__ meta,
-                  int* __restrict__ roll_g, int lq, int lt, int roll_smem,
-                  int seq_smem) {
+                  const int* __restrict__ tl, uint4* __restrict__ tape_g,
+                  signed char* __restrict__ ho_g, uint8_t* __restrict__ ops,
+                  long long* __restrict__ meta, int b, int lq, int lt,
+                  int nbp) {
     extern __shared__ __align__(16) unsigned char smem[];
-    __shared__ int s_state[3];            // traceback i, j, tape position
-    const int lane = blockIdx.x;
-    const int QL = min(max(ql[lane], 0), lq);
-    const int TL = min(max(tl[lane], 0), lt);
-    const int D = QL + TL;
-    if (D == 0) return;
-    const long long c0 = clock64();
-    const int tid = threadIdx.x, T = blockDim.x;
-    const int W = lt + 1;
-    const int RW = W + 2;
-    const int PW = (W + 3) / 4;
-    int* roll = roll_smem ? reinterpret_cast<int*>(smem)
-                          : roll_g + (size_t)lane * 3 * RW;
-    const uint8_t* qs = q + (size_t)lane * lq;
-    const uint8_t* ts = t + (size_t)lane * lt;
-    if (seq_smem) {
-        uint8_t* sq = smem + (size_t)12 * RW;
-        uint8_t* st = sq + lq;
-        for (int k = tid; k < lq; k += T) sq[k] = qs[k];
-        for (int k = tid; k < lt; k += T) st[k] = ts[k];
-        qs = sq;
-        ts = st;
-    }
-    for (int k = tid; k < 3 * RW; k += T) roll[k] = kBig;
-    __syncthreads();
-    // diagonal 0 (row 0): cell (0, 0) = 0 at column 0
-    if (tid == 0) roll[0] = 0;
-    __syncthreads();
-    uint8_t* drow = dirs + (size_t)lane * (lq + lt) * PW;
-
-    for (int d = 1; d <= D; ++d) {
-        int* cur = roll + (d % 3) * RW;
-        const int* p1 = roll + ((d + 2) % 3) * RW;
-        const int* p2 = roll + ((d + 1) % 3) * RW;
-        uint8_t* row = drow + (size_t)(d - 1) * PW;
-        const int jmin = max(0, d - QL), jmax = min(d, TL);
-        for (int base = jmin & ~31; base + (tid & ~31) <= jmax; base += T) {
-            const int j = base + tid;
-            int code = 0;
-            if (j >= jmin && j <= jmax) {
-                const int i = d - j;
-                int v = d;
-                if (i != 0 && j != 0) {
-                    const int cd = p2[j - 1] + (qs[i - 1] != ts[j - 1]);
-                    const int cu = p1[j] + 1;
-                    v = min(min(cd, cu), p1[j - 1] + 1);
-                    code = v == cd ? kDirDiag : (v == cu ? kDirUp : kDirLeft);
-                }
-                cur[j] = v;
-            }
-            pack_store(row, j, code, PW);
-        }
-        __syncthreads();
-    }
-
+    const int lane = threadIdx.x & 31;
+    const int pair = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+    if (pair >= b) return;
+    const int QL = min(max(ql[pair], 0), lq);
+    const int TL = min(max(tl[pair], 0), lt);
+    if (QL + TL == 0) return;
+    const long long c0k = clock64();
+    FullShared* sh = reinterpret_cast<FullShared*>(smem) + (threadIdx.x >> 5);
+    const uint8_t* qs = q + (size_t)pair * lq;
+    const uint8_t* ts = t + (size_t)pair * lt;
+    uint4* tape = tape_g + (size_t)pair * (lt + 31) * nbp;
+    signed char* ho = ho_g + (size_t)pair * lt;
+    const int nb = (QL + 63) >> 6;
+    if (TL > 0)
+        for (int s0 = 0; s0 < nb; s0 += 32)
+            full_stripe(sh, qs, ts, tape, ho, QL, TL, nb, nbp, s0, lane);
     const long long c1 = clock64();
-    // traceback over staged windows of direction rows
-    uint8_t* win = reinterpret_cast<uint8_t*>(roll);
-    const int rows = min(kWindowRows, 12 * RW / PW);
-    uint8_t* tape = ops + (size_t)lane * (lq + lt);
-    if (tid == 0) {
-        s_state[0] = QL;
-        s_state[1] = TL;
-        s_state[2] = 0;
-    }
-    __syncthreads();
+
+    // traceback: lane 0 walks, the warp stages windows
+    uint8_t* out = ops + (size_t)pair * (lq + lt);
+    int i = QL, j = TL, pos = 0;
+    int cur = 0, c0, b0, c2 = 0, b2 = 0;
+    place_full(i, j, nbp, c0, b0);
+    stage_full(sh, 0, tape, c0, b0, lt, nbp, lane);
+    wait_full();
     while (true) {
-        int i = s_state[0], j = s_state[1];
-        const int d = i + j;
-        if (d == 0) break;
-        const int dlo = max(1, d - rows + 1);
-        const uint8_t* src = drow + (size_t)(dlo - 1) * PW;
-        const int n = (d - dlo + 1) * PW;
-        for (int k = tid; k < n; k += T) win[k] = src[k];
-        __syncthreads();
-        if (tid == 0) {
-            int pos = s_state[2];
-            while ((i > 0 || j > 0) && i + j >= dlo) {
-                const int dd = i + j;
-                int code = (win[(dd - dlo) * PW + (j >> 2)] >> (2 * (j & 3)))
-                           & 3;
-                if (i == 0) code = kDirLeft;
-                if (j == 0) code = kDirUp;
-                uint8_t op;
-                if (code == kDirDiag) {
-                    op = qs[i - 1] == ts[j - 1] ? kOpEq : kOpX;
-                    --i;
-                    --j;
-                } else if (code == kDirUp) {
-                    op = kOpI;
-                    --i;
-                } else {
-                    op = kOpD;
-                    --j;
-                }
-                tape[pos++] = op;
-            }
-            s_state[0] = i;
-            s_state[1] = j;
-            s_state[2] = pos;
+        // the window to the left, in flight while the warp walks this one
+        const bool next = c0 > 0;
+        if (next) {
+            place_full(i, c0, nbp, c2, b2);
+            stage_full(sh, cur ^ 1, tape, c2, b2, lt, nbp, lane);
         }
-        __syncthreads();
+        walk_full((unsigned)__cvta_generic_to_shared(sh->win[cur]), i, j,
+                  pos, out, c0, b0, lane);
+        wait_full();
+        if (i == 0 && j == 0) break;
+        if (next && holds_full(i, j, c2, b2)) {
+            cur ^= 1;
+            c0 = c2;
+            b0 = b2;
+        } else {
+            place_full(i, j, nbp, c0, b0);
+            stage_full(sh, cur, tape, c0, b0, lt, nbp, lane);
+            wait_full();
+        }
     }
-    if (tid == 0) {
-        meta[2 * lane] = c1 - c0;
-        meta[2 * lane + 1] = clock64() - c1;
+    if (lane == 0) {
+        meta[2 * pair] = c1 - c0k;
+        meta[2 * pair + 1] = clock64() - c1;
     }
 }
 
@@ -753,7 +988,7 @@ align_band_kernel(const uint8_t* __restrict__ q,
 // per device, read once: the shared memory a block may opt into, the
 // SM count, and the dynamic shared memory each kernel was opted into
 struct DevInfo {
-    int optin, sms, full_set, band_set, split_set;
+    int optin, sms, band_set, split_set;
     bool prepared;
 };
 
@@ -783,24 +1018,20 @@ cudaError_t opt_in(K kernel, int smem, int& done) {
     return e;
 }
 
-// the full kernel: shared memory of one block, and whether the rolling
-// rows and the sequences fit there
-struct Layout {
-    int threads, smem, roll_smem, seq_smem;
-    long long roll_bytes;     // one block's rolling rows
+// The full kernel's launch: G pairs (warps) a block, enough blocks for
+// the SMs; and its tape's 64-row words a column, padded to the window's
+// kTbBlocks (nbp), with lt + 31 diagonal-major rows a pair.
+struct FullShape {
+    int G, nbp;
+    long long recs;           // tape records of one pair
 };
 
-Layout full_layout(int lq, int lt) {
-    const int optin = dev_info().optin - 64;   // the static s_state words
-    const long long w = (long long)lt + 1;
-    Layout l;
-    l.roll_bytes = 12 * (w + 2);
-    l.roll_smem = l.roll_bytes <= optin;
-    l.seq_smem = l.roll_smem && l.roll_bytes + lq + lt <= optin;
-    l.smem = (int)((l.roll_smem ? l.roll_bytes : 0)
-                   + (l.seq_smem ? lq + lt : 0));
-    l.threads = (int)(w < kMaxThreads ? (w + 31) / 32 * 32 : kMaxThreads);
-    return l;
+FullShape full_shape(int b, int lq, int lt, const DevInfo& info) {
+    FullShape f;
+    f.G = min(kFullWarps, max(1, (b + info.sms - 1) / info.sms));
+    f.nbp = ((lq + 63) / 64 + kTbBlocks - 1) / kTbBlocks * kTbBlocks;
+    f.recs = (long long)(lt + 31) * f.nbp;
+    return f;
 }
 
 // How a banded launch of b pairs runs: W warps a block, K blocks a
@@ -866,20 +1097,16 @@ int band_launch(const void* q, const void* t, const void* ql,
 
 extern "C" {
 
-// Device scratch bytes one lane needs for its rolling rows: the full
-// kernel's past shared memory, else 0 (the banded kernel needs none).
-long long align_scan_roll_bytes(int lq, int lt, int hw) {
-    if (hw) return 0;
-    const Layout l = full_layout(lq, lt);
-    return l.roll_smem ? 0 : l.roll_bytes;
-}
-
-// Bytes of the direction tape of a launch of b pairs: lq + lt rows a
-// pair of ceil((lt + 1) / 4) bytes (full), or of one 4-byte word a
-// thread of the pair's K blocks (banded); -1 when hw is past the banded
-// kernel.
+// Bytes of the direction tape of a launch of b pairs: the full kernel's
+// lt + 31 rows a pair of one 16-byte record (two 64-bit direction
+// planes) a 64-row word of the query, padded to 8 words, then lt carry
+// bytes a pair (a stripe's hand-off to the next); the banded kernel's
+// lq + lt rows a pair of one 4-byte word a thread of the pair's K
+// blocks; -1 when hw is past the banded kernel.
 long long align_scan_dir_bytes(int b, int lq, int lt, int hw) {
-    if (hw == 0) return (long long)b * (lq + lt) * ((lt + 4) / 4);
+    if (hw == 0)
+        return (long long)b * (full_shape(b, lq, lt, dev_info()).recs
+                               * (long long)sizeof(uint4) + lt);
     BandShape sh;
     if (!band_shape(b, hw, dev_info(), sh)) return -1;
     return (long long)b * (lq + lt) * sh.K * 32 * sh.W * sizeof(BandWord);
@@ -897,9 +1124,6 @@ int align_scan_prepare() {
     cudaFuncAttributes a;
     cudaError_t e = cudaFuncGetAttributes(&a, align_full_kernel);
     if (e == cudaSuccess)
-        e = opt_in(align_full_kernel, info.optin - (int)a.sharedSizeBytes,
-                   info.full_set);
-    if (e == cudaSuccess)
         e = cudaFuncGetAttributes(&a, align_band_kernel<kSlots, false>);
     if (e == cudaSuccess)
         e = opt_in(align_band_kernel<kSlots, false>,
@@ -916,29 +1140,28 @@ int align_scan_prepare() {
 // Aligns b pairs on ``stream``: q [b, lq], t [b, lt] uint8 codes, ql, tl
 // [b] int32, hw 0 for the full kernel, else the band's half-width (at
 // most 8 x 16 x 32 x 9 - 2 = 36,862).  dirs holds align_scan_dir_bytes()
-// bytes of direction tape; ops [b, lq + lt]
-// uint8 zeroed, meta [b, 2] int64 (each pair's sweep and traceback
-// clock64() cycles), roll b * align_scan_roll_bytes() bytes (unused
-// when that is 0).  Returns cudaGetLastError() after the launch (0 =
-// launched).
+// bytes of tape; ops [b, lq + lt] uint8 zeroed, meta [b, 2] int64 (each
+// pair's sweep and traceback clock64() cycles).  Returns
+// cudaGetLastError() after the launch (0 = launched).
 int align_scan_launch(const void* q, const void* t, const void* ql,
                       const void* tl, void* dirs, void* ops, void* meta,
-                      void* roll, int b, int lq, int lt, int hw,
-                      void* stream) {
+                      int b, int lq, int lt, int hw, void* stream) {
     if (b < 0 || lq < 1 || lt < 1 || hw < 0)
         return (int)cudaErrorInvalidValue;
     if (b == 0) return 0;
     DevInfo& info = dev_info();
     if (hw == 0) {
-        const Layout l = full_layout(lq, lt);
-        if (!l.roll_smem && roll == nullptr)
-            return (int)cudaErrorInvalidValue;
-        cudaError_t e = opt_in(align_full_kernel, l.smem, info.full_set);
-        if (e != cudaSuccess) return (int)e;
-        align_full_kernel<<<b, l.threads, l.smem, (cudaStream_t)stream>>>(
+        const FullShape f = full_shape(b, lq, lt, info);
+        if (f.recs >= (1LL << 31)) return (int)cudaErrorInvalidValue;
+        uint4* tape = static_cast<uint4*>(dirs);
+        signed char* ho = reinterpret_cast<signed char*>(
+            tape + (size_t)b * f.recs);
+        align_full_kernel<<<(b + f.G - 1) / f.G, 32 * f.G,
+                            f.G * sizeof(FullShared),
+                            (cudaStream_t)stream>>>(
             (const uint8_t*)q, (const uint8_t*)t, (const int*)ql,
-            (const int*)tl, (uint8_t*)dirs, (uint8_t*)ops, (long long*)meta,
-            (int*)roll, lq, lt, l.roll_smem, l.seq_smem);
+            (const int*)tl, tape, ho, (uint8_t*)ops, (long long*)meta, b,
+            lq, lt, f.nbp);
         return (int)cudaGetLastError();
     }
     BandShape sh;

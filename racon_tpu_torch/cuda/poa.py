@@ -278,14 +278,16 @@ class CudaPoaBatchEngine:
                                  pk.bblen, self.device)
         stats = torch.zeros((pk.seqs.shape[0], 3), dtype=torch.int32,
                             device=self.device)
+        caps = dict(v=self.vcap, lp=self.lcap, wb=self.wb, p=self.pcap,
+                    s=self.pcap, a=8)
+        bufs = pf.poa_full_buffers(int(pk.seqs.shape[0]), **caps,
+                                   device=self.device)
         timer = DispatchTimer(self.device, util)
         timer.mark()
         cons, mout = pf.poa_full(
-            *args, v=self.vcap, lp=self.lcap, wb=self.wb,
-            match=self.match, mismatch=self.mismatch, gap=self.gap,
-            wtype=windows[0].type.value, trim=1 if trim else 0,
-            p=self.pcap, s=self.pcap, a=8, stats=stats,
-            timer=timer)
+            *args, **caps, match=self.match, mismatch=self.mismatch,
+            gap=self.gap, wtype=windows[0].type.value,
+            trim=1 if trim else 0, stats=stats, timer=timer, bufs=bufs)
         if not timer.cuda:
             timer.mark()
 

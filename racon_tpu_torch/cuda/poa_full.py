@@ -23,7 +23,9 @@ from device memory, and the pred slots past the shared-memory mirror it
 read.
 
 ``poa_full`` launches the kernel (``csrc/poa_full.cu``) for CUDA
-tensors and runs ``poa_full_reference`` for CPU tensors.  The plain
+tensors, into buffers from ``poa_full_buffers`` (made before a
+dispatch's first mark), and runs ``poa_full_reference`` for CPU
+tensors.  The plain
 version keeps the graph in Python lists and computes each DP row as a
 vector over the band on the inputs' device; it is the kernel's
 arithmetic written out, not a fast path.
@@ -194,16 +196,47 @@ def check_inputs(seqs, wts, meta, nlay, bblen, *, v, lp, wb, p, s,
     return b, d1
 
 
+def poa_full_buffers(b: int, *, v: int, lp: int, wb: int, p: int = 16,
+                     s: int = 16, a: int = 8, device) -> dict:
+    """Every buffer one launch of ``b`` windows writes, made on the CUDA
+    ``device`` before the launch (so a dispatch's event window holds the
+    two passes alone): ``cons`` [b, v] and ``mout`` [b, 8] int32 zeroed,
+    the per-block ``scratch`` of the larger pass grid, the zeroed
+    ``queue`` ([3 + b] int32), the ``passes`` (``pass_grids``, whose
+    occupancy query runs here) and ``words``, the launch they were made
+    for (``key``), and the bound library with its kernel loaded and
+    opted in (``poa_full_prepare``).  Nothing on the CPU."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return {}
+    from racon_tpu_torch.cuda import build
+
+    lib = build.prepare("poa_full", device)
+    passes = pass_grids(device, b, v, lp, wb) if b else []
+    words = scratch_words(v, lp, wb, p, s, a)
+    return {"key": (b, v, lp, wb, p, s, a), "lib": lib, "passes": passes,
+            "words": words,
+            "cons": torch.zeros((b, v), dtype=torch.int32, device=device),
+            "mout": torch.zeros((b, 8), dtype=torch.int32, device=device),
+            "scratch": torch.empty(
+                (max([g for *_, g in passes] + [1]), words),
+                dtype=torch.int32, device=device),
+            "queue": torch.zeros(3 + b, dtype=torch.int32, device=device),
+            "used": False}
+
+
 def poa_full(seqs, wts, meta, nlay, bblen, *, v: int, lp: int, wb: int,
              match: int, mismatch: int, gap: int, wtype: int, trim: int,
              p: int = 16, s: int = 16, a: int = 8, stats=None,
-             timer=None):
+             timer=None, bufs=None):
     """Consensus of every window of the batch: (cons [B, V] int32,
     mout [B, 8] int32) on the inputs' device; ``stats``, when given,
     is a [B, 3] int32 tensor on that device filled in place, and
     ``timer``, a ``devclock.DispatchTimer``, gets a mark after each
     pass's launch on the card.  CUDA
-    tensors launch the kernel, in two passes of resident blocks that
+    tensors launch the kernel into ``bufs`` (``poa_full_buffers`` for
+    this launch, or buffers made here; a set serves one launch), in two
+    passes of resident blocks that
     take the windows in batch order: the first with a shared-memory
     graph of ``first_pass_nodes(v)`` nodes, the second with all ``v``
     for the windows that outgrew it (device-side hand-over, no host
@@ -225,30 +258,35 @@ def poa_full(seqs, wts, meta, nlay, bblen, *, v: int, lp: int, wb: int,
         raise ValueError(f"unsupported device {seqs.device}")
     from racon_tpu_torch.cuda import build
 
-    lib = build.load("poa_full")
     dev = seqs.device
-    cons = torch.zeros((b, v), dtype=torch.int32, device=dev)
-    mout = torch.zeros((b, 8), dtype=torch.int32, device=dev)
+    if bufs is None:
+        bufs = poa_full_buffers(b, v=v, lp=lp, wb=wb, p=p, s=s, a=a,
+                                device=dev)
+    elif bufs.get("key") != (b, v, lp, wb, p, s, a):
+        raise ValueError(f"poa_full buffers made for {bufs.get('key')} do "
+                         f"not fit the launch's {(b, v, lp, wb, p, s, a)}")
+    cons, mout, queue = bufs["cons"], bufs["mout"], bufs["queue"]
+    if cons.device != dev:
+        raise ValueError("poa_full buffers are not on the inputs' device")
     if b == 0:
         return cons, mout
     if any(t.data_ptr() % 16 for t in (seqs, wts)):
         raise ValueError("seqs and wts must be 16-byte aligned")
-    passes = pass_grids(dev, b, v, lp, wb)
-    words = scratch_words(v, lp, wb, p, s, a)
-    scratch = torch.empty((max(g for *_, g in passes), words),
-                          dtype=torch.int32, device=dev)
-    queue = torch.zeros(3 + b, dtype=torch.int32, device=dev)
+    if bufs["used"]:
+        raise ValueError("poa_full buffers serve one launch: their queue "
+                         "counters and outputs are spent")
+    bufs["used"] = True
     stream = torch.cuda.current_stream(dev).cuda_stream
-    for n, second, grid in passes:
+    for n, second, grid in bufs["passes"]:
         with torch.cuda.device(dev):
-            err = lib.poa_full_launch(
+            err = bufs["lib"].poa_full_launch(
                 seqs.data_ptr(), wts.data_ptr(), meta.data_ptr(),
                 nlay.data_ptr(), bblen.data_ptr(), cons.data_ptr(),
                 mout.data_ptr(),
                 None if stats is None else stats.data_ptr(),
-                scratch.data_ptr(), queue.data_ptr(), words, b, grid, v, n,
-                second, lp, d1, wb, p, s, a, match, mismatch, gap, wtype,
-                trim, stream)
+                bufs["scratch"].data_ptr(), queue.data_ptr(),
+                bufs["words"], b, grid, v, n, second, lp, d1, wb, p, s, a,
+                match, mismatch, gap, wtype, trim, stream)
         if err != 0:
             raise RuntimeError(
                 f"poa_full kernel launch failed: "

@@ -303,6 +303,8 @@ class CudaPolisher(Polisher):
         #: the scan kernels' ``aligner.kernel_cells`` (``align_cells`` is
         #: their sum)
         self.align_kernel_cells = dict.fromkeys(self.ALIGN_KERNELS, 0)
+        #: the full scan kernel's Myers word steps (``aligner.full_words``)
+        self.align_scan_full_words = 0
         #: per kernel: summed clock64() cycles per phase (meta[:, 2:4];
         #: the scan kernels' meta[:, 0:2]): wavefront steps, DP rows or
         #: the scan sweep, then traceback
@@ -1705,6 +1707,7 @@ class CudaPolisher(Polisher):
                 self.align_dispatches[name] += st["launches"]
                 self.align_kernel_ms[name] += st["kernel_ms"]
                 self.align_kernel_cells[name] += st["cells"]
+                self.align_scan_full_words += st.get("words", 0)
                 self.align_cycles[name] = [
                     a + c for a, c in zip(self.align_cycles[name],
                                           st["cycles"])]

@@ -11,8 +11,10 @@ back as int32 tensors holding the uint32 bits; ``kmer_words`` hands
 them to numpy as uint32.
 
 ``seed_words`` launches the kernel (``csrc/seed_words.cu``) for CUDA
-tensors and runs ``seed_words_reference`` for CPU tensors; on a CUDA
-tensor it launches or raises, it never falls back.  The plain version
+tensors, into buffers from ``seed_words_buffers`` (made before a
+dispatch's first mark, as ``kmer_words`` does), and runs
+``seed_words_reference`` for CPU tensors; on a CUDA tensor it launches
+or raises, it never falls back.  The plain version
 computes in int64 (torch's uint32 has few kernels) and masks to 32
 bits.
 """
@@ -45,24 +47,49 @@ def check_inputs(codes, k: int) -> int:
     return nk
 
 
-def seed_words(codes, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(fw, rv) int32 ``[n - k + 1]`` on the codes' device."""
-    nk = check_inputs(codes, k)
+def seed_words_buffers(n: int, k: int, device) -> dict:
+    """Every buffer one launch over ``n`` codes writes, made on the CUDA
+    ``device`` before the launch (so a dispatch's event window holds the
+    launch alone): ``fw`` and ``rv`` int32 ``[n - k + 1]``, the launch
+    they were made for (``key``) and the bound library with its kernel
+    loaded (``seed_words_prepare``).  Nothing on the CPU."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return {}
+    from racon_tpu_torch.cuda import build
+
+    nk = max(1, n - k + 1)
+    return {"key": (n, k), "lib": build.prepare("seed_words", device),
+            "fw": torch.empty(nk, dtype=torch.int32, device=device),
+            "rv": torch.empty(nk, dtype=torch.int32, device=device)}
+
+
+def seed_words(codes, k: int, bufs=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(fw, rv) int32 ``[n - k + 1]`` on the codes' device: on the card
+    the kernel's, into ``bufs`` (``seed_words_buffers`` for this launch,
+    or buffers made here; every word is written, so a set may be used
+    again)."""
+    check_inputs(codes, k)
     if codes.device.type == "cpu":
         return seed_words_reference(codes, k)
     if codes.device.type != "cuda":
         raise ValueError(f"unsupported device {codes.device}")
     from racon_tpu_torch.cuda import build
 
-    lib = build.load("seed_words")
-    dev = codes.device
-    fw = torch.empty(nk, dtype=torch.int32, device=dev)
-    rv = torch.empty(nk, dtype=torch.int32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    with torch.cuda.device(dev):
-        err = lib.seed_words_launch(codes.data_ptr(), fw.data_ptr(),
-                                    rv.data_ptr(), int(codes.shape[0]), k,
-                                    stream)
+    n = int(codes.shape[0])
+    if bufs is None:
+        bufs = seed_words_buffers(n, k, codes.device)
+    elif bufs.get("key") != (n, k):
+        raise ValueError(f"seed-word buffers made for (n, k) = "
+                         f"{bufs.get('key')} do not fit the launch's "
+                         f"{(n, k)}")
+    fw, rv = bufs["fw"], bufs["rv"]
+    if fw.device != codes.device:
+        raise ValueError("seed-word buffers are not on the codes' device")
+    stream = torch.cuda.current_stream(codes.device).cuda_stream
+    with torch.cuda.device(codes.device):
+        err = bufs["lib"].seed_words_launch(codes.data_ptr(), fw.data_ptr(),
+                                            rv.data_ptr(), n, k, stream)
     if err != 0:
         raise RuntimeError(f"seed_words kernel launch failed: "
                            f"{build.error_string('seed_words', err)} ({err})")
@@ -88,16 +115,20 @@ def kmer_words(codes: np.ndarray, k: int, device
                ) -> Tuple[np.ndarray, np.ndarray]:
     """numpy uint8 codes -> numpy uint32 (fw, rv), built on ``device``
     (a torch device): the kernel on a card, the plain version on the
-    CPU.  At least k codes.  The build's interval is a
-    ``device.seed_words`` span of the trace's device lane and a
-    ``seed_words`` interval of ``obs.DEVICE_UTIL`` (cuda/devclock.py)."""
+    CPU.  At least k codes.  The launch's interval (the wrapper alone:
+    the upload and the buffers come before it, the words' copy back
+    after) is a ``device.seed_words`` span of the trace's device lane
+    and a ``seed_words`` interval of ``obs.DEVICE_UTIL``
+    (cuda/devclock.py)."""
     t = torch.from_numpy(np.ascontiguousarray(codes, dtype=np.uint8))
     dev = torch.device(device)
     if dev.type != "cpu":
         t = t.to(dev, non_blocking=False)
+    check_inputs(t, k)
+    bufs = seed_words_buffers(int(t.shape[0]), k, dev)
     timer = DispatchTimer(dev)
     timer.mark()
-    fw, rv = seed_words(t, k)
+    fw, rv = seed_words(t, k, bufs)
     timer.mark()
     out = (fw.cpu().numpy().view(np.uint32),
            rv.cpu().numpy().view(np.uint32))

@@ -1,4 +1,4 @@
-"""The align dispatches' event windows hold the kernel wrapper alone.
+"""The dispatches' event windows hold the kernel wrapper alone.
 
 A dispatch's timer (``cuda/devclock.py:DispatchTimer``) records a CUDA
 event at each mark, so whatever the host does between the two marks
@@ -9,7 +9,11 @@ recorders and hold, for ``cuda/align.py``'s ``wfa_dispatch`` and
 (``cuda/aligner.py:band_align_batch``, at every rung and the unbanded
 kernel), that every input and buffer is built before the first mark
 and handed to the wrapper, and that only the wrapper runs between the
-two marks.  They run the plain versions on the CPU.
+two marks; and the same for the POA dispatch
+(``cuda/poa.py:CudaPoaBatchEngine._launch``, its buffers from
+``cuda/poa_full.py:poa_full_buffers``) and the mapper's seed words
+(``cuda/seed_words.py:kmer_words``, its buffers from
+``seed_words_buffers``).  They run the plain versions on the CPU.
 """
 
 import random
@@ -17,11 +21,16 @@ import random
 import numpy as np
 import pytest
 
+from racon_tpu_torch import convert
+from racon_tpu_torch.core.window import Window, WindowType
 from racon_tpu_torch.cuda import align
 from racon_tpu_torch.cuda import align_band as ab
 from racon_tpu_torch.cuda import align_wfa as aw
 from racon_tpu_torch.cuda import aligner as al
+from racon_tpu_torch.cuda import poa_full as pf
+from racon_tpu_torch.cuda import seed_words as sw
 from racon_tpu_torch.cuda.devclock import DispatchTimer
+from racon_tpu_torch.cuda.poa import CudaPoaBatchEngine
 from racon_tpu_torch.tools.scan_pairs import mutate
 
 
@@ -58,15 +67,17 @@ def log(monkeypatch):
     for mod, name in ((al, "encode_batch"), (al, "scan_buffers"),
                       (align, "_lengths"), (align, "_upload"),
                       (ab, "proportional_knots"), (aw, "wfa_buffers"),
-                      (ab, "band_buffers")):
+                      (ab, "band_buffers"), (convert, "pack_windows"),
+                      (convert, "to_device"), (pf, "poa_full_buffers"),
+                      (sw, "seed_words_buffers")):
         builder(mod, name)
 
-    def wrapper(mod, name):
+    def wrapper(mod, name, inputs=4):
         real = getattr(mod, name)
 
         def rec(*a, **kw):
             events.append("kernel")
-            assert all(hasattr(x, "device") for x in a[:4]), name
+            assert all(hasattr(x, "device") for x in a[:inputs]), name
             bufs = kw["bufs"] if "bufs" in kw else a[-1]
             assert isinstance(bufs, dict), f"{name} made its buffers"
             return real(*a, **kw)
@@ -76,6 +87,8 @@ def log(monkeypatch):
     wrapper(ab, "band_align")
     wrapper(al, "align_banded")
     wrapper(al, "align_full")
+    wrapper(pf, "poa_full", inputs=5)
+    wrapper(sw, "seed_words", inputs=1)
     return events
 
 
@@ -141,3 +154,39 @@ def test_scan_launches_build_before_their_windows(log, monkeypatch,
     assert all(w == ["kernel"] for w in inside), inside
     for b in before:
         assert {"build:encode_batch", "build:scan_buffers"} <= set(b), b
+
+
+def _poa_window(seed: int, n_layers: int, length: int = 90):
+    rng = np.random.default_rng(seed)
+    bb = bytes(rng.choice(list(b"ACGT"), length).astype(np.uint8))
+    w = Window(0, 0, WindowType.TGS, bb, b"+" * length)
+    for _ in range(n_layers):
+        s = bytearray(bb)
+        for k in rng.integers(0, length, 5):
+            s[k] = int(rng.choice(list(b"ACGT")))
+        w.add_layer(bytes(s), b"+" * length, 0, length)
+    return w
+
+
+def test_poa_dispatch_builds_before_its_window(log):
+    """One whole-window POA launch: the packed inputs, their upload and
+    every buffer (``poa_full_buffers``) come before the first mark."""
+    eng = CudaPoaBatchEngine(5, -4, -8, device="cpu", vcap=256, lcap=256)
+    results = eng.consensus_batch([_poa_window(1, 3), _poa_window(2, 4)],
+                                  True)
+    assert all(ok for _, ok in results)
+    inside, before = _windows(log)
+    assert inside == [["kernel"]]
+    assert {"build:pack_windows", "build:to_device",
+            "build:poa_full_buffers"} <= set(before[0])
+
+
+def test_seed_words_dispatch_builds_before_its_window(log):
+    """The mapper's seed words: the word buffers (``seed_words_buffers``)
+    come before the first mark, the copy back after the second."""
+    codes = np.random.default_rng(4).integers(0, 5, 300).astype(np.uint8)
+    fw, rv = sw.kmer_words(codes, 13, "cpu")
+    assert fw.dtype == np.uint32 and fw.shape == (288,)
+    inside, before = _windows(log)
+    assert inside == [["kernel"]]
+    assert "build:seed_words_buffers" in before[0]

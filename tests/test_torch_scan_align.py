@@ -111,13 +111,37 @@ def _cost(ops):
 # kernels: plain versions == the JAX kernels, every lane
 # ---------------------------------------------------------------------------
 
+def _edge_pairs(seed: int):
+    """Pairs at the full kernel's edges: queries of 0, 1, 31-33, 63-65
+    and 1,023-1,025 bases (a lane's 64-row word, a warp's 32 words
+    ends a stripe of 2,048 rows) against short targets, N bases, and
+    repeats whose alignments tie between diagonal, up and left."""
+    rng = random.Random(seed)
+
+    def seq(n, alphabet=b"ACGT"):
+        return bytes(rng.choice(alphabet) for _ in range(n))
+
+    qs, ts = [], []
+    for n in (0, 1, 31, 32, 33, 63, 64, 65, 1023, 1024, 1025):
+        s = seq(n, b"ACGTN" if n % 2 else b"ACGT")
+        qs += [s, s]
+        ts += [mutate(s[:70], 0.15, rng), seq(rng.randint(0, 40))]
+    for n in (7, 33, 65):
+        qs += [b"AC" * n, b"A" * n, b"ACGTN" * (n // 5 + 1)]
+        ts += [b"CA" * (n + 2), b"A" * (n // 2) + b"C" + b"A" * (n // 3),
+               b"NACGT" * (n // 5)]
+    return qs, ts
+
+
 @pytest.mark.parametrize("seed,max_len,square", [(1, 40, False),
                                                  (2, 120, True),
-                                                 (3, 300, False)])
+                                                 (3, 300, False),
+                                                 (4, 0, False)])
 def test_full_plain_equals_jax(seed, max_len, square):
+    """max_len 0: the kernel's edge pairs (``_edge_pairs``)."""
     from racon_tpu.tpu import aligner as ja
 
-    qs, ts = _pairs(seed, 14, max_len)
+    qs, ts = _pairs(seed, 14, max_len) if max_len else _edge_pairs(seed)
     dim = max(map(len, qs + ts))
     arrs = _batch(qs, ts, *((dim, dim) if square else ()))
     lq, lt = arrs[0].shape[1], arrs[1].shape[1]
@@ -203,8 +227,7 @@ def test_a_failed_launch_raises_and_counts_nothing(monkeypatch):
     arrs = _torch(_batch(*_pairs(5, 4, 40)))
     b, lq, lt = int(arrs[0].shape[0]), arrs[0].shape[1], arrs[1].shape[1]
     bufs = al.scan_buffers(b, lq, lt, 9, "cpu")
-    bufs.update(lib=Refusing(), dirs=torch.empty(64, dtype=torch.uint8),
-                roll=torch.empty(1, dtype=torch.int32))
+    bufs.update(lib=Refusing(), dirs=torch.empty(64, dtype=torch.uint8))
     before = build.launch_counts()["align_scan_band"]
     with pytest.raises(RuntimeError, match="invalid argument"):
         al._launch(*arrs, 9, "align_scan_band", bufs)
@@ -540,10 +563,10 @@ def test_wfa_gates_at_their_defaults_change_nothing(ladder_set,
 @pytest.mark.cuda
 def test_kernels_match_plain_on_card():
     """Both scan kernels against their plain versions on the card, on
-    the seeded and constructed pairs, at odd and even half-widths and
-    at a full-kernel row past what shared memory holds with the
-    sequences (needs a GPU and nvcc; run with ``pytest -m cuda`` on the
-    card)."""
+    the seeded and constructed pairs, at odd and even half-widths, at
+    full-kernel rows of 18,000 and 20,000 columns, on the full kernel's
+    edge pairs and on queries past one stripe (needs a GPU and nvcc; run
+    with ``pytest -m cuda`` on the card)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     from racon_tpu_torch.cuda import build
@@ -556,16 +579,30 @@ def test_kernels_match_plain_on_card():
         ref = (al.align_banded_plain(*arrs, hw) if hw
                else al.align_full_plain(*arrs))
         assert torch.equal(got, ref), hw
-    # rows of 18,000 and 20,000 columns: the sequences, then the rolling
-    # diagonals too, past the block's shared memory
+    # rows of 18,000 and 20,000 columns (a long target: the tape's
+    # diagonal-major rows, the traceback's windows along it)
     long_q = [bytes(random.Random(9).choice(b"ACGT") for _ in range(300))]
     for lt in (18000, 20000):
         arrs = [a.cuda() for a in _torch(_batch(long_q, long_q, 320, lt,
                                                 pad_lanes=1))]
         assert torch.equal(al.align_full(*arrs),
                            al.align_full_plain(*arrs)), lt
+    # the full kernel's edges: queries of 0, 1, 31-33, 63-65 and
+    # 1,023-1,025 bases, N bases and tie-heavy repeats; then queries past
+    # one stripe of 2,048 rows (2,049 and 4,100 bases), whose stripes
+    # hand over through the tape
+    for seed in (4, 6):
+        arrs = [a.cuda() for a in _torch(_batch(*_edge_pairs(seed)))]
+        assert torch.equal(al.align_full(*arrs),
+                           al.align_full_plain(*arrs)), seed
+    rng = random.Random(10)
+    long_qs = [bytes(rng.choice(b"ACGT") for _ in range(n))
+               for n in (2_049, 4_100)]
+    long_ts = [mutate(s, 0.1, rng)[:1_500] for s in long_qs]
+    arrs = [a.cuda() for a in _torch(_batch(long_qs, long_ts))]
+    assert torch.equal(al.align_full(*arrs), al.align_full_plain(*arrs))
     counts = build.launch_counts()
-    assert counts["align_scan_full"] == 3
+    assert counts["align_scan_full"] == 6
     assert counts["align_scan_band"] == 4
     # a band past the kernel's widest (a cluster of 8 blocks of 16
     # warps) raises; nothing runs in its place
