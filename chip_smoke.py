@@ -149,11 +149,6 @@ Needs one CUDA card.  Phases, one JSON line each:
    scan_full_card  the same for scan_check's full-kernel region row
                 tiled to 1,024 lanes in one launch (the bound from the
                 full kernel's Myers word steps);
-   scan_full_ab  the full kernel (bit-parallel columns) against the
-                banded kernel over a band that covers the matrix, in
-                turns (full, band, band, full), on scan_check's full row
-                and the batched aligner's 16-lane bucket: the ms of
-                each, both tapes equal the checked ones;
    polish_scan  the CLI (-c 1 --cudaaligner-batches 1) on the first Mb
                 with RACON_TPU_TORCH_SCAN_ALIGN=1 and the align stage
                 all on the card: distance to the cut's truth <= draft /
@@ -259,7 +254,16 @@ Needs one CUDA card.  Phases, one JSON line each:
                 ``metrics --fleet A,B --json``: the merged kernel launch
                 counters equal the two daemons' summed, every merged
                 histogram's p50/p90/p99 equal ``merge_snapshots``'s;
-                ``wrapper_served``, the wrapper
+                ``wrapper_split``, the port's wrapper
+                (racon_tpu_torch/tools/wrapper.py) in a subprocess under
+                the backends' staged environment, on the failover part's
+                two-contig job, ``--split`` at the larger contig's bytes
+                (two chunks of one contig), ``-c 1
+                --cudaaligner-batches 1 -t <threads>``: one one-shot CLI
+                process per chunk, its bytes equal the routed job's
+                first two records, each chunk's device poa and align
+                seconds from its stderr > 0, no read with overlaps on
+                two contigs, the wall; ``wrapper_served``, the wrapper
                 with ``--server <router>`` on the failover part's
                 two-contig job, ``--split`` at the larger contig's
                 bytes: the router scatters it (shards=auto, two winners
@@ -278,9 +282,8 @@ Needs one CUDA card.  Phases, one JSON line each:
                 to ``metrics --fleet <router>,A,B --json`` taken next;
                 ``explain``, ``explain --socket <backend> --job <the
                 routed job>`` (JSON and text) and ``explain
-                --metrics-json`` on that job's run report written to a
-                file: each waterfall's stage walls within 1% of its
-                report's;
+                --metrics-json`` on a wrapper chunk's run report: each
+                waterfall's stage walls within 1% of its report's;
                 ``fleet_card``, each backend's max_memory_reserved, the
                 card's compute processes as nvidia-smi lists them, and
                 the processes with a /dev/nvidia<N> node open, sampled
@@ -337,8 +340,8 @@ twice; the same bytes), ``--only fusion`` phases 1-3 and fusion,
 ``--only serve`` phases 1-3, the staged polish and serve, ``--only
 fleet`` phases 1-3 and fleet, ``--only lockstep`` phases 1-3,
 lockstep_check, polish_w1000 and polish_wlong, ``--only scan`` phases 1-3,
-scan_check, scan_card, scan_full_card, scan_full_ab, polish_scan and
-polish_portable.  ``--keep DIR``
+scan_check, scan_card, scan_full_card, polish_scan and polish_portable.
+``--keep DIR``
 copies the traced runs' traces and reports to DIR (open a trace in
 Perfetto).  The
 calibration store is off (``RACON_TPU_TORCH_CACHE_DIR=""``) outside
@@ -2411,6 +2414,18 @@ def fasta_head(fa: bytes, n: int) -> bytes:
     return b"".join(b">" + rec for rec in fa.split(b">")[1:n + 1])
 
 
+def reads_on_two_contigs(paf: str) -> int:
+    """The reads with PAF records on more than one target: where a split
+    run's per-chunk overlap filter could keep another overlap than the
+    whole run's."""
+    targets = {}
+    with open(paf, "rb") as fh:
+        for line in fh:
+            f = line.split(b"\t", 6)
+            targets.setdefault(f[0], set()).add(f[5])
+    return sum(1 for t in targets.values() if len(t) > 1)
+
+
 def waterfall_sum(text: str) -> float:
     """The summed stage walls of an ``explain`` waterfall as rendered
     (``serve/explain.py:_fmt_s``); the "(other)" row has no bar."""
@@ -2500,7 +2515,7 @@ def card_holders(pids) -> set:
 def fleet_phase(cpu, work, data, truth, threads) -> None:
     """The fleet on the card (module docstring): two backends and a
     router, a routed and a scattered job, a failover, two ranks, the
-    fleet scrape, the served wrapper, the read side (inspect,
+    fleet scrape, the wrapper split and served, the read side (inspect,
     top, explain) and the card's processes."""
     import base64
     import hashlib
@@ -2726,13 +2741,37 @@ def fleet_phase(cpu, work, data, truth, threads) -> None:
                 for c in counters.values()):
             raise RuntimeError(f"fleet metrics: {counters}, {q_bad}")
 
-        # ---- g: the wrapper's flags and chunk size for h (its run of one
-        # one-shot process per chunk is held on the CPU by
-        # tests/test_torch_tools.py)
+        # ---- g: the wrapper, one one-shot process per chunk, on the
+        # failover part's two contigs: two chunks of one contig (the
+        # chunk size of the larger one)
         flags = ["-c", "1", "--cudaaligner-batches", "1", "-t",
                  str(threads)]
         lens = [len(q) for _, q in fasta_records(read_bytes(paths_fo[2]))]
         split = max(lens)
+        report = os.path.join(work, "wrapper_chunk.metrics.json")
+        out, wall_w = run_wrapper(
+            work, ["--split", str(split), *flags, *paths_fo],
+            {**staged, "RACON_TPU_TORCH_METRICS_JSON": report},
+            "wrapper_split")
+        chunks = re.findall(rb"target split into (\d+) chunk", out.stderr)
+        device = [{"poa_s": float(p), "align_s": float(a)}
+                  for p, a in re.findall(rb"device poa ([0-9.]+) s / align "
+                                         rb"([0-9.]+) s", out.stderr)]
+        two = reads_on_two_contigs(paths_fo[1])
+        emit("fleet", part="wrapper_split", rc=out.returncode,
+             contigs=FAILOVER_CONTIGS, identical=out.stdout == whole_fo,
+             split_bytes=split,
+             chunks=int(chunks[0]) if chunks else None, chunk_device=device,
+             reads_on_two_contigs=two, wall_s=round(wall_w, 3))
+        if out.returncode != 0 or out.stdout != whole_fo \
+                or chunks != [b"2"] \
+                or len(device) != 2 or two != 0 \
+                or any(d["poa_s"] <= 0 or d["align_s"] <= 0
+                       for d in device):
+            raise RuntimeError(f"fleet wrapper_split: rc {out.returncode}, "
+                               f"{chunks} chunks, device {device}, "
+                               f"{two} reads on two contigs: "
+                               f"{out.stderr[-2000:]}")
 
         # ---- h: the wrapper against the router on the failover part's
         # two contigs, two chunks of one contig (the chunk size of the
@@ -2768,6 +2807,7 @@ def fleet_phase(cpu, work, data, truth, threads) -> None:
              shard_keys=scat[-1]["keys"] if scat else None,
              shard_winners=won, contigs=FAILOVER_CONTIGS,
              identical=out.stdout == whole_fo, wall_s=round(wall_s, 3),
+             wrapper_split_wall_s=round(wall_w, 3),
              repeat={"identical": again.stdout == whole_fo,
                      "wall_s": round(wall_r, 3),
                      "jobs_run": delta(c2, c1, "serve_jobs_completed"),
@@ -2843,12 +2883,9 @@ def fleet_phase(cpu, work, data, truth, threads) -> None:
             raise RuntimeError(f"fleet top_fleet: {list(rows)}, counters "
                                f"equal {same}")
 
-        # ---- k: the routed job's waterfall from its backend, and from
-        # its run report written to a file
+        # ---- k: the routed job's waterfall from its backend, and a
+        # wrapper chunk's from its run report
         jid, bsock = routed["job_id"], routed["routed_backend"]
-        report = os.path.join(work, "routed.metrics.json")
-        with open(report, "w") as fh:
-            json.dump(routed["report"], fh)
         rcs, texts = zip(*(read_side(a) for a in (
             ["explain", "--socket", bsock, "--job", str(jid), "--json"],
             ["explain", "--socket", bsock, "--job", str(jid)],
@@ -3846,21 +3883,17 @@ def lockstep_phase(cli, cpu, work, data, region, dev, inputs, truth,
 # the scan ladder (RACON_TPU_TORCH_SCAN_ALIGN / RACON_TPU_TORCH_PORTABLE)
 # ---------------------------------------------------------------------------
 
-# scan full, cell by cell (one unit-cost cell, as OPS_PER_BAND_CELL
-# counts it): substitution compare 1, the diagonal, up and left
-# candidates 3 (adds), their mins 2, the 2-bit direction 4 (two
-# compares, two selects) and its packing 2 (shift, or); the boundary
-# cells are the matrix's first row and column, not a per-cell cost.
-# The cell-by-cell bound, kept beside the one below (``cell_bound_ms``)
-OPS_PER_SCAN_FULL_CELL = 12
 # scan full, bit-parallel (one Myers step of a 64-row word of the query
 # at one target column, as the full kernel computes it):
 # 17 64-bit operations (the Peq word's or with Mv, the carry-in,
 # and-add-xor-or of Xh, Ph and Mh, the two top bits of hout, the two
 # shifts with their carry-ins, Pv and Mv), each two int32 ones
 OPS_PER_SCAN_FULL_WORD = 34
-# scan banded (one slot of a diagonal): the full cell's 12 and the
-# function's own clip of every value to BIG 1
+# scan banded (one slot of a diagonal, as OPS_PER_BAND_CELL counts a
+# cell): substitution compare 1, the diagonal, up and left candidates 3
+# (adds), their mins 2, the 2-bit direction 4 (two compares, two
+# selects), its packing 2 (shift, or), and the function's own clip of
+# every value to BIG 1
 OPS_PER_SCAN_BAND_CELL = 13
 SCAN_PORTABLE_BP = 250_000
 
@@ -3912,10 +3945,7 @@ def scan_row(qs, ts, lq: int, lt: int, hw: int, dev, keep=None) -> dict:
     cost = ((tape != al.OP_STOP) & (tape != al.OP_EQ)).sum(1)
     if keep is not None:
         keep.update(qs=qs, ts=ts, tapes=tape, lq=lq, lt=lt, hw=hw)
-    extra = {} if hw else {
-        "words": al.full_words(ql, tl),
-        "cell_bound_ms": bound(nbytes(*kin), nbytes(out),
-                               cells * OPS_PER_SCAN_FULL_CELL)[0]}
+    extra = {} if hw else {"words": al.full_words(ql, tl)}
     return {"hw": hw, "lq": lq, "lt": lt, "lanes": len(qs), "padded": bb,
             "longest": int(max(ql.max(), tl.max())),
             "mismatches": int((diff > 0).sum()),
@@ -4017,64 +4047,6 @@ def scan_card(checked: dict, dev, n_lanes: int) -> dict:
             "cycles": cycle_split(cycles, ("sweep", "traceback"))}
 
 
-def forced_pairs(region) -> tuple:
-    """The batched aligner's short-pair bucket (scan_forced_full): 8
-    region pairs cut to 1,500 bases and 8 unrelated pairs of 1,500."""
-    pairs = region_pairs(region, 16, 16384)
-    qs = [q[:1500] for q, _ in pairs]
-    ts = [t[:1500] for _, t in pairs[:8]] + [t[:1500] for _, t in
-                                             pairs[8:][::-1]]
-    return qs, ts
-
-
-def scan_full_ab(checked_full: dict, region, dev) -> dict:
-    """The full kernel (bit-parallel columns) against the alternative
-    design, the banded kernel's own scheme (diagonals in registers, a
-    named barrier a pair, a cluster split) over a band that covers the
-    matrix (hw = max(lq, lt): the band then holds every cell, and its
-    tape is the full one), in turns (full, band, band, full; each the
-    median of 5 CUDA-event runs after a checked call), on scan_check's
-    full row and on the batched aligner's 16-lane bucket (its 16 pairs,
-    bucket 1,536).  Both tapes must equal the full row's checked tapes
-    (the bucket's: each other's)."""
-    import numpy as np
-    import torch
-    from racon_tpu_torch.cuda import aligner as al
-
-    out = {}
-    fq, ft = forced_pairs(region)
-    for name, qs, ts, lq, lt in (
-            ("full_row", checked_full["qs"], checked_full["ts"],
-             checked_full["lq"], checked_full["lt"]),
-            ("bucket16", fq, ft, 1536, 1536)):
-        bb = al._pow2_batch(len(qs))
-        pad = [b""] * (bb - len(qs))
-        ql = np.array([len(x) for x in qs + pad], np.int32)
-        tl = np.array([len(x) for x in ts + pad], np.int32)
-        kin = [torch.from_numpy(a).to(dev) for a in (
-            al.encode_batch(qs + pad, lq, al.QPAD),
-            al.encode_batch(ts + pad, lt, al.TPAD), ql, tl)]
-        hw = max(lq, lt)
-        fb = al.scan_buffers(bb, lq, lt, 0, dev)
-        bband = al.scan_buffers(bb, lq, lt, hw, dev)
-        designs = {"full": lambda: al.align_full(*kin, fb),
-                   "band": lambda: al.align_banded(*kin, hw, bband)}
-        tapes = {k: f().cpu().numpy()[:len(qs)] for k, f in designs.items()}
-        want = checked_full["tapes"] if name == "full_row" else tapes["full"]
-        mism = {k: int((t != want).any(1).sum()) for k, t in tapes.items()}
-        ms = {"full": [], "band": []}
-        for k in ("full", "band", "band", "full"):
-            ms[k].append(round(statistics.median(cuda_ms(designs[k], 5)), 4))
-        out[name] = {"lanes": len(qs), "padded": bb, "lq": lq, "lt": lt,
-                     "band_hw": hw, "mismatches": mism, "ms": ms,
-                     "bound_ms": scan_bound(nbytes(*kin), bb * (lq + lt),
-                                            ql, tl, 0)[0],
-                     "faster": min(ms, key=lambda k: min(ms[k]))}
-        del fb, bband
-        torch.cuda.empty_cache()
-    return out
-
-
 def scan_forced_full(region, dev, cpu) -> dict:
     """A short-pair bucket through ``CudaBatchAligner`` (the batched
     aligner API): 8 region pairs cut to 1,500 bases and 8 unrelated
@@ -4083,7 +4055,10 @@ def scan_forced_full(region, dev, cpu) -> dict:
     distance must be the native edit distance."""
     from racon_tpu_torch.cuda import aligner as al
 
-    qs, ts = forced_pairs(region)
+    pairs = region_pairs(region, 16, 16384)
+    qs = [q[:1500] for q, _ in pairs]
+    ts = [t[:1500] for _, t in pairs[:8]] + [t[:1500] for _, t in
+                                             pairs[8:][::-1]]
     aligner = al.CudaBatchAligner(1536, 1536, len(qs), device=dev)
     for q, t in zip(qs, ts):
         if not aligner.add(q, t):
@@ -4207,7 +4182,8 @@ def scan_paths(cli, cpu, work, data, inputs, truth, region, dev,
 
 def scan_phase(cli, cpu, work, data, region, dev, inputs, truth,
                threads) -> tuple:
-    """scan_check, scan_card, then polish_scan and polish_portable;
+    """scan_check, scan_card, scan_full_card, then polish_scan and
+    polish_portable;
     returns the lines of scan_check, polish_scan and polish_portable."""
     scheck, checked, checked_full = scan_check(region, dev)
     emit("scan_check", **scheck)
@@ -4225,10 +4201,6 @@ def scan_phase(cli, cpu, work, data, region, dev, inputs, truth,
             raise RuntimeError(f"{name}: {card['mismatches']} of "
                                f"{n_lanes} tiled lanes differ from their "
                                "checked tapes")
-    ab = scan_full_ab(checked_full, region, dev)
-    emit("scan_full_ab", **ab)
-    if any(sum(r["mismatches"].values()) for r in ab.values()):
-        raise RuntimeError(f"scan_full_ab: tapes differ: {ab}")
     return (scheck, *scan_paths(cli, cpu, work, data, inputs, truth, region,
                                 dev, threads))
 
@@ -4250,13 +4222,13 @@ def main(argv=None) -> int:
                     "cache / fusion: env, build, dataset and that phase "
                     "only; serve: env, build, dataset, the staged polish "
                     "and serve; fleet: env, build, dataset and fleet (the "
-                    "router, shards, failover, ranks, scrape, the served "
-                    "wrapper, inspect --fleet, top --fleet and "
+                    "router, shards, failover, ranks, scrape, the wrapper "
+                    "split and served, inspect --fleet, top --fleet and "
                     "explain); lockstep: env, build, dataset, "
                     "lockstep_check, polish_w1000 and polish_wlong; scan: "
                     "env, build, "
                     "dataset, scan_check, scan_card, scan_full_card, "
-                    "scan_full_ab, polish_scan and polish_portable; "
+                    "polish_scan and polish_portable; "
                     "then exit 0 without the result line")
     ap.add_argument("--keep", default=None,
                     help="directory to copy the traced runs' traces and "

@@ -840,25 +840,43 @@ poa_full_kernel(const uint8_t* __restrict__ seqs,
     }
 }
 
-// the instantiation for a band width (CPL = wb / 32): the band of every
-// window cap the polisher fits (LP <= 1024, so WB 256); null otherwise
-const void* kernel_for(int wb) {
-    return wb == 256 ? (const void*)poa_full_kernel<8> : nullptr;
+// the instantiations, one a band width (CPL = wb / 32): the band of
+// every window cap the polisher fits (LP <= 1024, so WB 256)
+constexpr int kWidths[] = {256};
+constexpr int kInstances = sizeof(kWidths) / sizeof(kWidths[0]);
+
+// the instantiation's index for a band width, or -1
+int instance_of(int wb) {
+    for (int i = 0; i < kInstances; ++i)
+        if (kWidths[i] == wb) return i;
+    return -1;
 }
 
-// per device: the dynamic shared memory the kernel is opted in to
-int g_opted[64];
+// the instantiation for a band width; null for a width without one
+const void* kernel_for(int wb) {
+    switch (instance_of(wb)) {
+        case 0: return (const void*)poa_full_kernel<8>;
+        default: return nullptr;
+    }
+}
 
-// opt the instantiation in to ``smem`` bytes of dynamic shared memory,
-// unless it already is (poa_full_prepare opts it in to the limit)
-cudaError_t prepare(const void* k, size_t smem) {
+// per device and instantiation: the dynamic shared memory it is opted
+// in to
+int g_opted[64][kInstances];
+
+// opt the instantiation of band width ``wb`` in to ``smem`` bytes of
+// dynamic shared memory, unless it already is (poa_full_prepare opts
+// each in to the limit)
+cudaError_t prepare(int wb, size_t smem) {
+    const void* k = kernel_for(wb);
+    if (k == nullptr) return cudaErrorInvalidValue;
     int dev = 0;
     cudaError_t err = cudaGetDevice(&dev);
-    if (err != cudaSuccess || (long long)smem <= g_opted[dev & 63])
-        return err;
+    int& opted = g_opted[dev & 63][instance_of(wb)];
+    if (err != cudaSuccess || (long long)smem <= opted) return err;
     err = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)smem);
-    if (err == cudaSuccess) g_opted[dev & 63] = (int)smem;
+    if (err == cudaSuccess) opted = (int)smem;
     return err;
 }
 
@@ -866,24 +884,26 @@ cudaError_t prepare(const void* k, size_t smem) {
 
 extern "C" {
 
-// Loads the kernel on the current device and opts it in to the most
-// dynamic shared memory a block may take, once a device.  CUDA loads a
-// module at a kernel's first use, so a launch (or an occupancy query)
-// that came first would pay for the load inside its dispatch's event
-// window; poa_full_buffers calls this before the window.
+// Loads every instantiation on the current device and opts each in to
+// the most dynamic shared memory a block may take, once a device.  CUDA
+// loads a module at a kernel's first use, so a launch (or an occupancy
+// query) that came first would pay for the load inside its dispatch's
+// event window; poa_full_buffers calls this before the window.
 // Returns a CUDA error code (0 = ready).
 int poa_full_prepare() {
-    const void* k = kernel_for(256);
     int dev = 0, optin = 0;
     cudaError_t err = cudaGetDevice(&dev);
-    if (err == cudaSuccess && g_opted[dev & 63] > 0) return 0;
     if (err == cudaSuccess)
         err = cudaDeviceGetAttribute(
             &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-    cudaFuncAttributes a;
-    if (err == cudaSuccess) err = cudaFuncGetAttributes(&a, k);
-    if (err == cudaSuccess)
-        err = prepare(k, (size_t)(optin - (int)a.sharedSizeBytes));
+    for (int i = 0; i < kInstances && err == cudaSuccess; ++i) {
+        if (g_opted[dev & 63][i] > 0) continue;
+        cudaFuncAttributes a;
+        err = cudaFuncGetAttributes(&a, kernel_for(kWidths[i]));
+        if (err == cudaSuccess)
+            err = prepare(kWidths[i],
+                          (size_t)(optin - (int)a.sharedSizeBytes));
+    }
     return (int)err;
 }
 
@@ -893,7 +913,7 @@ int poa_full_slots(int vs, int lp, int wb) {
     const void* k = kernel_for(wb);
     if (k == nullptr) return -(int)cudaErrorInvalidValue;
     const size_t smem = smem_total(vs, lp, wb);
-    cudaError_t err = prepare(k, smem);
+    cudaError_t err = prepare(wb, smem);
     int dev = 0, sms = 0, per_sm = 0;
     if (err == cudaSuccess) err = cudaGetDevice(&dev);
     if (err == cudaSuccess)
@@ -933,7 +953,7 @@ int poa_full_launch(const void* seqs, const void* wts, const void* meta,
     P.pkr = 1;
     while (P.pkr < lp + 8) P.pkr <<= 1;
     const size_t smem = smem_total(vs, lp, wb);
-    cudaError_t err = prepare(k, smem);
+    cudaError_t err = prepare(wb, smem);
     if (err != cudaSuccess) return (int)err;
     void* args[] = {(void*)&seqs, (void*)&wts, (void*)&meta, (void*)&nlay,
                     (void*)&bblen, (void*)&cons, (void*)&mout, (void*)&stats,

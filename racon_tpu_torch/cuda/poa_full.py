@@ -234,9 +234,9 @@ def poa_full(seqs, wts, meta, nlay, bblen, *, v: int, lp: int, wb: int,
     is a [B, 3] int32 tensor on that device filled in place, and
     ``timer``, a ``devclock.DispatchTimer``, gets a mark after each
     pass's launch on the card.  CUDA
-    tensors launch the kernel into ``bufs`` (``poa_full_buffers`` for
-    this launch, or buffers made here; a set serves one launch), in two
-    passes of resident blocks that
+    tensors launch the kernel into ``bufs``, which they need
+    (``poa_full_buffers`` for this launch, made before it; a set serves
+    one launch), in two passes of resident blocks that
     take the windows in batch order: the first with a shared-memory
     graph of ``first_pass_nodes(v)`` nodes, the second with all ``v``
     for the windows that outgrew it (device-side hand-over, no host
@@ -260,9 +260,9 @@ def poa_full(seqs, wts, meta, nlay, bblen, *, v: int, lp: int, wb: int,
 
     dev = seqs.device
     if bufs is None:
-        bufs = poa_full_buffers(b, v=v, lp=lp, wb=wb, p=p, s=s, a=a,
-                                device=dev)
-    elif bufs.get("key") != (b, v, lp, wb, p, s, a):
+        raise ValueError("poa_full on the card takes its buffers from "
+                         "poa_full_buffers, made before the launch")
+    if bufs.get("key") != (b, v, lp, wb, p, s, a):
         raise ValueError(f"poa_full buffers made for {bufs.get('key')} do "
                          f"not fit the launch's {(b, v, lp, wb, p, s, a)}")
     cons, mout, queue = bufs["cons"], bufs["mout"], bufs["queue"]

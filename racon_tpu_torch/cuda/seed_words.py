@@ -66,9 +66,9 @@ def seed_words_buffers(n: int, k: int, device) -> dict:
 
 def seed_words(codes, k: int, bufs=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """(fw, rv) int32 ``[n - k + 1]`` on the codes' device: on the card
-    the kernel's, into ``bufs`` (``seed_words_buffers`` for this launch,
-    or buffers made here; every word is written, so a set may be used
-    again)."""
+    the kernel's, into ``bufs``, which it needs (``seed_words_buffers``
+    for this launch, made before it; every word is written, so a set may
+    be used again)."""
     check_inputs(codes, k)
     if codes.device.type == "cpu":
         return seed_words_reference(codes, k)
@@ -78,8 +78,9 @@ def seed_words(codes, k: int, bufs=None) -> Tuple[torch.Tensor, torch.Tensor]:
 
     n = int(codes.shape[0])
     if bufs is None:
-        bufs = seed_words_buffers(n, k, codes.device)
-    elif bufs.get("key") != (n, k):
+        raise ValueError("seed_words on the card takes its buffers from "
+                         "seed_words_buffers, made before the launch")
+    if bufs.get("key") != (n, k):
         raise ValueError(f"seed-word buffers made for (n, k) = "
                          f"{bufs.get('key')} do not fit the launch's "
                          f"{(n, k)}")

@@ -612,18 +612,24 @@ def test_seed_words_kernel_matches_plain_on_card(k):
     unaligned start and a tail shorter than one block's tile, and at
     every ``codes`` offset 0-15 against k-mer counts at the 16-byte
     stores' edges (n - k + 1 = 0-3 mod 4), a thread's run of 16 and a
-    tile of 4,096 words, each +- 1 (needs a GPU and nvcc; run with
+    tile of 4,096 words, each +- 1, into buffers made before each launch
+    (with none the wrapper raises; needs a GPU and nvcc; run with
     ``pytest -m cuda`` on the card)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     codes = jax_mini.encode(_random_seq(1_000_003, k, 0.01))
     dev = torch.from_numpy(codes).cuda()
+    launches = build.launch_counts()["seed_words"]
+    with pytest.raises(ValueError, match="seed_words_buffers"):
+        sw.seed_words(dev, k)
+    assert build.launch_counts()["seed_words"] == launches
     edges = [dev[off:off + k - 1 + m] for off in range(16)
              for m in (1, 2, 3, 4, 5, 15, 16, 17, 4_095, 4_096, 4_097,
                        8_193, 100_003)]
     for t in [dev, dev[3:], dev[:k], dev[:2_049 + k]] + edges:
         launches = build.launch_counts()["seed_words"]
-        fw, rv = sw.seed_words(t, k)
+        fw, rv = sw.seed_words(t, k, sw.seed_words_buffers(
+            int(t.shape[0]), k, t.device))
         torch.cuda.synchronize()
         assert build.launch_counts()["seed_words"] == launches + 1
         pf, pr = sw.seed_words_reference(t, k)

@@ -22,6 +22,7 @@ import torch
 
 from racon_tpu_torch import convert
 from racon_tpu_torch.core.window import Window, WindowType
+from racon_tpu_torch.cuda import build
 from racon_tpu_torch.cuda import poa_full as pf
 from racon_tpu_torch.ops import cpu
 from racon_tpu_torch.tools.poa_windows import stress_windows
@@ -278,8 +279,10 @@ def test_wrapper_rejects_bad_inputs(bad):
 
 @pytest.mark.cuda
 def test_kernel_matches_plain_on_card():
-    """The CUDA kernel against its plain version on the card (needs a
-    GPU and nvcc; run with ``pytest -m cuda`` on the card)."""
+    """The CUDA kernel against its plain version on the card, into
+    buffers made before the launch; with none the wrapper raises before
+    any launch (needs a GPU and nvcc; run with ``pytest -m cuda`` on the
+    card)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     for seed, (wtype, trim) in enumerate(CASES):
@@ -289,7 +292,12 @@ def test_kernel_matches_plain_on_card():
                                  pk.bblen, "cuda")
         kw = dict(v=V, lp=LP, wb=WB, wtype=wtype.value, trim=trim,
                   **SCORES)
-        kc, km = pf.poa_full(*args, **kw)
+        launches = build.launch_counts()["poa_full"]
+        with pytest.raises(ValueError, match="poa_full_buffers"):
+            pf.poa_full(*args, **kw)
+        assert build.launch_counts()["poa_full"] == launches
+        kc, km = pf.poa_full(*args, **kw, bufs=pf.poa_full_buffers(
+            int(pk.seqs.shape[0]), v=V, lp=LP, wb=WB, device="cuda"))
         pc, pm = pf.poa_full_reference(*args, **kw)
         torch.cuda.synchronize()
         assert torch.equal(km[:, :5], pm[:, :5])
@@ -311,7 +319,9 @@ def test_window_alone_equals_window_in_full_batch():
     def run(ws):
         pk = convert.pack_windows(ws, LP, V)
         return pf.poa_full(*convert.to_device(
-            pk.seqs, pk.wts, pk.meta, pk.nlay, pk.bblen, "cuda"), **kw)
+            pk.seqs, pk.wts, pk.meta, pk.nlay, pk.bblen, "cuda"), **kw,
+            bufs=pf.poa_full_buffers(int(pk.seqs.shape[0]), v=V, lp=LP,
+                                     wb=WB, device="cuda"))
 
     batch = (wins * (1000 // len(wins) + 1))[:1000]
     bc, bm = run(batch)
